@@ -1,0 +1,694 @@
+"""Fabric: N-level topologies compiled into one hop-graph executor.
+
+Port of the stacked part of ``src/repro/core/fabric.py``.
+
+* ``LevelSpec`` / ``FabricSpec`` — a declarative topology: per-level
+  fan-in, route enables, uplink (link) capacities, crossing extras for the
+  timed lane, the extension-lane constraint, static per-edge health and
+  the wire strategy (``exchange_mode``, "gather" or "routed").
+* ``compile_fabric`` → ``FabricPlan`` — the static hop graph, host side in
+  numpy: per-level fan-ins, enables, compact-before-gather capacities,
+  extension-lane detours around dead uplinks, and the per-destination
+  merge segment layout.
+* ``fabric_route_step`` — one exchange round for all leaves (and any
+  leading batch rows) on one device.  The plain one-level untimed star runs
+  the ``exchange`` kernel; every other plan runs fwd LUT, cascaded uplink
+  packs and the nearest-first merge in PyTorch, then the ``merge_pack``
+  kernel as the merge tail.
+
+Hop-graph semantics (paper §III/§V): leaves are the ``prod(fan_in)``
+Node-FPGA endpoints.  A tier-``i`` entity (tier 0 = leaf, tier 1 =
+backplane, ...) uplinks its aggregated egress stream into the tier-``i+1``
+merge, packed to that level's ``link_capacity`` (overflow is an uplink drop
+attributed to every leaf of the entity); packs cascade.  A destination leaf
+merges, nearest first, the streams of its own backplane, then of the
+sibling backplanes in its case, and so on, gated by each level's route
+enables (own subtree excluded above level 1); then it packs to the ingress
+``capacity`` and applies its reverse LUT.  On the timed lane each crossing
+above level 1 adds its fixed extra plus the uplink lane's wait of the
+event's rank in the entity stream.
+
+The sharded executor (``torch.distributed``), dynamic health overlays and
+fault schedules are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import routing
+from repro_torch.core.events import (EventFrame, make_frame, pack_wire16,
+                                     unpack_wire16)
+from repro_torch.core.interconnect import (BACKPLANES_PER_RACK,
+                                           CHIPS_PER_BACKPLANE,
+                                           EXTENSION_LANES)
+from repro_torch.core.latency import LatencyParams, TimedWire, queue_wait_i32
+from repro_torch.core.link import LinkConfig
+from repro_torch.kernels.spike_router.ops import (fused_exchange,
+                                                  fused_merge_pack)
+
+
+class ExchangeDrops(NamedTuple):
+    """Loss accounting of one exchange round, split by drop point (int32,
+    one entry per destination leaf):
+
+    ``congestion``: destination pack-unit overflow.
+    ``uplink``: overflow of the compact-before-gather uplink packs
+    (higher-level overflow attributed to every leaf of the packed entity).
+    ``unroutable``: events killed by a dead edge with no surviving route.
+    ``rerouted``: not a loss — events that crossed a dead uplink over a
+    sibling's spare extension lanes.
+    """
+
+    congestion: torch.Tensor
+    uplink: torch.Tensor
+    unroutable: torch.Tensor
+    rerouted: torch.Tensor
+
+    @property
+    def total(self) -> torch.Tensor:
+        return self.congestion + self.uplink + self.unroutable
+
+
+def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Topology description (host side)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelSpec:
+    """One level of the hop graph: a node joining ``fan_in`` children.
+
+    ``enables``: bool[fan_in, fan_in] route enables between the node's
+    children (``None`` = all-to-all, without self-loops at level 1).
+    ``link_capacity``: events each child's uplink admits per round (``None``
+    = the whole stream travels); ``link`` derives it from the transceiver
+    model instead.  ``latency``: per-level crossing extra for the timed
+    lane (``None`` = the ``TimedWire`` default).  ``extension``: the
+    children ride the Aggregator's extension lanes.  ``uplink_health`` /
+    ``downlink_health``: static per-edge health, one bool per child entity
+    crossing into this level, entity-major.
+    """
+
+    fan_in: int
+    enables: object = None
+    link_capacity: int | None = None
+    link: LinkConfig | None = None
+    latency: LatencyParams | None = None
+    extension: bool = False
+    uplink_health: tuple[bool, ...] | None = None
+    downlink_health: tuple[bool, ...] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricSpec:
+    """A declarative N-level topology, leaf level first."""
+
+    levels: tuple[LevelSpec, ...]
+    capacity: int
+    window_us: float | None = None
+    name: str = ""
+    reroute: bool = True
+    exchange_mode: str = "gather"
+
+    @property
+    def n_nodes(self) -> int:
+        return math.prod(lvl.fan_in for lvl in self.levels)
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """Compiled static state of one hop-graph level (numpy)."""
+
+    fan_in: int
+    enables: np.ndarray        # bool[fan_in, fan_in]
+    link_capacity: int | None  # per-child uplink pack into this level
+    extra_ns: int | None       # timed crossing extra; None = TimedWire default
+    leaves: int                # leaves under one node of this level
+    uplink_ok: np.ndarray | None = None    # bool[n_edges]; None = all healthy
+    detour: np.ndarray | None = None       # int32[n_edges] host edge, -1 none
+    downlink_ok: np.ndarray | None = None  # bool[n_edges]; None = all healthy
+
+    @property
+    def routable(self) -> np.ndarray | None:
+        """Edges whose traffic survives: alive, or detoured via a host."""
+        if self.uplink_ok is None:
+            return None
+        return self.uplink_ok | (self.detour >= 0)
+
+    @property
+    def degraded(self) -> bool:
+        return self.uplink_ok is not None or self.downlink_ok is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricPlan:
+    """The compiled hop graph the executor consumes."""
+
+    spec: FabricSpec
+    levels: tuple[LevelPlan, ...]
+    n_nodes: int
+    capacity: int
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+    @property
+    def compact(self) -> bool:
+        """Every merge segment is front-compacted (leaf lanes packed)."""
+        return self.levels[0].link_capacity is not None
+
+    @property
+    def exchange_mode(self) -> str:
+        return self.spec.exchange_mode
+
+    @property
+    def degraded(self) -> bool:
+        return any(lvl.degraded for lvl in self.levels)
+
+    def merge_layout(self, cap_in: int) -> tuple[tuple[int, ...], ...]:
+        """Per-level merge segment lengths for egress frames of ``cap_in``."""
+        u0 = self.levels[0].link_capacity
+        segs_u = (u0,) if u0 is not None else (cap_in,)
+        out = []
+        for i, lvl in enumerate(self.levels):
+            out.append(segs_u * lvl.fan_in)
+            if i + 1 < len(self.levels):
+                nxt = self.levels[i + 1]
+                segs_u = ((nxt.link_capacity,) if nxt.link_capacity is not None
+                          else segs_u * lvl.fan_in)
+        return tuple(out)
+
+
+def _parse_health(raw, n_edges: int, what: str) -> np.ndarray | None:
+    """Normalize a per-edge health vector: ``None``/all-True → ``None``."""
+    if raw is None:
+        return None
+    health = np.asarray(raw, dtype=bool).reshape(-1)
+    if health.shape[0] != n_edges:
+        raise ValueError(f"{what} has {health.shape[0]} entries but the "
+                         f"level crosses {n_edges} edges")
+    return None if bool(health.all()) else health
+
+
+def _assign_detours(alive: np.ndarray, fan_in: int) -> np.ndarray:
+    """Host edge for each dead uplink: the nearest healthy sibling (ring
+    distance in the group, ties to the lower slot) with spare extension
+    lanes, each host taking at most ``EXTENSION_LANES`` detours; -1 for
+    healthy edges and for dead edges with no host."""
+    n_edges = alive.shape[0]
+    detour = np.full(n_edges, -1, np.int32)
+    budget = np.zeros(n_edges, np.int32)
+    for base in range(0, n_edges, fan_in):
+        for j in range(fan_in):
+            if alive[base + j]:
+                continue
+            cands = sorted(
+                (min((k - j) % fan_in, (j - k) % fan_in), k)
+                for k in range(fan_in) if k != j and alive[base + k])
+            for _, k in cands:
+                if budget[base + k] < EXTENSION_LANES:
+                    detour[base + j] = base + k
+                    budget[base + k] += 1
+                    break
+    return detour
+
+
+EXCHANGE_MODES = ("gather", "routed")
+
+
+def compile_fabric(spec: FabricSpec) -> FabricPlan:
+    """Compile a topology description into the static hop-graph plan."""
+    if not spec.levels:
+        raise ValueError("a fabric needs at least one level")
+    if spec.capacity <= 0:
+        raise ValueError(f"ingress capacity must be positive: {spec.capacity}")
+    if spec.exchange_mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange_mode: {spec.exchange_mode!r} "
+                         f"(expected one of {EXCHANGE_MODES})")
+    n_nodes = spec.n_nodes
+    levels = []
+    leaves = 1
+    for i, lvl in enumerate(spec.levels):
+        f = lvl.fan_in
+        if f < 1:
+            raise ValueError(f"level {i} fan_in must be >= 1: {f}")
+        if lvl.extension and f > EXTENSION_LANES:
+            raise ValueError(
+                f"level {i} rides the {EXTENSION_LANES} Aggregator extension "
+                f"lanes but joins {f} children")
+        if lvl.enables is None:
+            enables = (~np.eye(f, dtype=bool) if i == 0
+                       else np.ones((f, f), bool))
+        else:
+            enables = _to_numpy(lvl.enables).astype(bool)
+            if enables.shape != (f, f):
+                raise ValueError(
+                    f"level {i} enables shape {enables.shape} does not match "
+                    f"fan_in {f}")
+        cap = lvl.link_capacity
+        if cap is None and lvl.link is not None:
+            if lvl.link.link_capacity is not None:
+                cap = lvl.link.link_capacity
+            elif spec.window_us is not None:
+                cap = lvl.link.events_per_window(spec.window_us)
+            else:
+                raise ValueError(
+                    f"level {i} has a LinkConfig without an event budget; "
+                    "set LinkConfig.link_capacity or FabricSpec.window_us "
+                    "to derive it from events_per_window")
+        if cap is not None and cap < 1:
+            raise ValueError(f"level {i} link_capacity must be >= 1: {cap}")
+        extra = (None if lvl.latency is None
+                 else int(round(lvl.latency.second_layer_extra_ns())))
+        n_edges = n_nodes // leaves
+        up_ok = _parse_health(lvl.uplink_health, n_edges,
+                              f"level {i} uplink_health")
+        down_ok = _parse_health(lvl.downlink_health, n_edges,
+                                f"level {i} downlink_health")
+        detour = None
+        if up_ok is not None:
+            # Leaf lanes (level 1) have no sibling interconnect to detour
+            # over; only Aggregator-tier uplinks borrow a sibling's lanes.
+            detour = (_assign_detours(up_ok, f) if spec.reroute and i > 0
+                      else np.full(n_edges, -1, np.int32))
+        leaves *= f
+        levels.append(LevelPlan(fan_in=f, enables=enables,
+                                link_capacity=cap, extra_ns=extra,
+                                leaves=leaves, uplink_ok=up_ok,
+                                detour=detour, downlink_ok=down_ok))
+    return FabricPlan(spec=spec, levels=tuple(levels), n_nodes=leaves,
+                      capacity=spec.capacity)
+
+
+def with_exchange_mode(plan: FabricPlan, mode: str) -> FabricPlan:
+    """Copy a compiled plan under a different wire strategy (the levels are
+    strategy-independent, so nothing recompiles)."""
+    if mode not in EXCHANGE_MODES:
+        raise ValueError(f"unknown exchange_mode: {mode!r} "
+                         f"(expected one of {EXCHANGE_MODES})")
+    if plan.spec.exchange_mode == mode:
+        return plan
+    return dataclasses.replace(
+        plan, spec=dataclasses.replace(plan.spec, exchange_mode=mode))
+
+
+def star_spec(n_nodes: int, capacity: int, *, enables=None,
+              link_capacity: int | None = None,
+              link: LinkConfig | None = None,
+              window_us: float | None = None, name: str = "") -> FabricSpec:
+    """One backplane star: the 1-level fabric."""
+    return FabricSpec(
+        levels=(LevelSpec(fan_in=n_nodes, enables=enables,
+                          link_capacity=link_capacity, link=link),),
+        capacity=capacity, window_us=window_us, name=name)
+
+
+def hierarchical_spec(n_pods: int, per_pod: int, capacity: int, *,
+                      intra_enables=None, inter_enables=None,
+                      link_capacity: int | None = None,
+                      pod_capacity: int | None = None,
+                      name: str = "") -> FabricSpec:
+    """The §V two-layer system: the 2-level fabric."""
+    return FabricSpec(
+        levels=(LevelSpec(fan_in=per_pod, enables=intra_enables,
+                          link_capacity=link_capacity),
+                LevelSpec(fan_in=n_pods, enables=inter_enables,
+                          link_capacity=pod_capacity)),
+        capacity=capacity, name=name)
+
+
+def ext_4case_spec(capacity: int = 96, *,
+                   chips_per_backplane: int = CHIPS_PER_BACKPLANE,
+                   backplanes_per_case: int = BACKPLANES_PER_RACK,
+                   n_cases: int = 4,
+                   link_capacities: tuple[int | None, int | None, int | None]
+                   = (None, None, None)) -> FabricSpec:
+    """The 3-level extension scenario: two backplanes per 4U case, cases
+    chained over the Aggregator's 4 extension lanes."""
+    u0, u1, u2 = link_capacities
+    n = chips_per_backplane * backplanes_per_case * n_cases
+    return FabricSpec(
+        levels=(LevelSpec(fan_in=chips_per_backplane, link_capacity=u0),
+                LevelSpec(fan_in=backplanes_per_case, link_capacity=u1),
+                LevelSpec(fan_in=n_cases, link_capacity=u2, extension=True)),
+        capacity=capacity, name=f"EXT_4CASE_{n}CHIP")
+
+
+def degrade_spec(spec: FabricSpec,
+                 dead: Iterable[tuple[int, int] | tuple[int, int, str]],
+                 *, reroute: bool | None = None) -> FabricSpec:
+    """Copy ``spec`` with the given edges marked dead — ``(level, edge)`` or
+    ``(level, edge, kind)`` tuples, kind defaulting to ``'uplink'``.
+    Existing health is kept and degraded further."""
+    n_nodes = spec.n_nodes
+    health = {}
+    gsize = 1
+    for i, lvl in enumerate(spec.levels):
+        n_edges = n_nodes // gsize
+        for kind, raw in (("uplink", lvl.uplink_health),
+                          ("downlink", lvl.downlink_health)):
+            health[(i, kind)] = (np.ones(n_edges, bool) if raw is None
+                                 else np.asarray(raw, bool).copy())
+        gsize *= lvl.fan_in
+    for entry in dead:
+        level, edge, kind = entry if len(entry) == 3 else (*entry, "uplink")
+        if (level, kind) not in health:
+            raise ValueError(f"unknown fault kind or level: {kind!r}/{level}")
+        if not 0 <= edge < health[(level, kind)].shape[0]:
+            raise ValueError(f"edge {edge} outside level {level}'s "
+                             f"{health[(level, kind)].shape[0]} edges")
+        health[(level, kind)][edge] = False
+    new_levels = tuple(
+        dataclasses.replace(
+            lvl,
+            uplink_health=tuple(bool(b) for b in health[(i, "uplink")]),
+            downlink_health=tuple(bool(b) for b in health[(i, "downlink")]))
+        for i, lvl in enumerate(spec.levels))
+    return dataclasses.replace(
+        spec, levels=new_levels,
+        reroute=spec.reroute if reroute is None else reroute)
+
+
+# ---------------------------------------------------------------------------
+# Static plan arrays on the device
+# ---------------------------------------------------------------------------
+
+# Keyed by (bytes, shape, dtype, device): a plan's static index and mask
+# arrays are uploaded once per device, not once per exchange step.
+_CONST_CACHE: dict = {}
+
+
+def _const(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    key = (a.tobytes(), a.shape, a.dtype.str, str(device))
+    t = _CONST_CACHE.get(key)
+    if t is None:
+        t = torch.from_numpy(a.copy()).to(device)
+        _CONST_CACHE[key] = t
+    return t
+
+
+# Keyed by (n, gsize, fan_in, level > 0, enables bytes), as in the reference.
+_ROUTED_MAP_CACHE: dict = {}
+
+
+def _routed_leaf_maps(enables, level: int, n: int, gsize: int, f: int):
+    """Static per-destination source schedule of one stacked level.
+
+    Returns ``(src_flat, live, deg)``: ``src_flat`` int32[f·deg] lists, for
+    each destination child slot, the ``deg`` child slots of its enabled
+    sources in ascending order (own subtree excluded above level 0), padded
+    with slot 0 where ``live`` (bool[n, deg], per destination leaf) is
+    False; ``deg`` is the largest in-degree.  These are the hop-graph
+    edges: a disabled pair never enters the merge stream.
+    """
+    en = _to_numpy(enables).astype(bool)
+    key = (n, gsize, f, min(level, 1), en.tobytes())
+    hit = _ROUTED_MAP_CACHE.get(key)
+    if hit is None:
+        need = en & ~np.eye(f, dtype=bool) if level > 0 else en
+        deg = max(1, int(need.sum(axis=0).max()))
+        src = np.zeros((f, deg), np.int32)
+        live = np.zeros((f, deg), bool)
+        for k in range(f):
+            js = np.flatnonzero(need[:, k])
+            src[k, :len(js)] = js
+            live[k, :len(js)] = True
+        child = (np.arange(n) // gsize) % f
+        hit = (src.reshape(-1), live[child], deg)
+        _ROUTED_MAP_CACHE[key] = hit
+    return hit
+
+
+def merge_segments(plan: FabricPlan, cap_in: int) -> tuple[int, ...]:
+    """Segment lengths of a destination's merge stream, nearest level
+    first: each level's ``merge_layout`` in gather mode; in routed mode the
+    segments of the ``deg`` enabled-source slots each destination takes."""
+    layout = plan.merge_layout(cap_in)
+    if plan.exchange_mode == "gather":
+        return tuple(s for level in layout for s in level)
+    segs, gsize = [], 1
+    for i, lvl in enumerate(plan.levels):
+        _, _, deg = _routed_leaf_maps(lvl.enables, i, plan.n_nodes, gsize,
+                                      lvl.fan_in)
+        segs += list(layout[i][:len(layout[i]) // lvl.fan_in]) * deg
+        gsize *= lvl.fan_in
+    return tuple(segs)
+
+
+# ---------------------------------------------------------------------------
+# Timed datapath and degraded-mode helpers
+# ---------------------------------------------------------------------------
+
+
+def _rank(valid: torch.Tensor) -> torch.Tensor:
+    """Exclusive arrival rank of each valid slot along the last axis."""
+    ok = valid.to(torch.int32)
+    return torch.cumsum(ok, dim=-1, dtype=torch.int32) - ok
+
+
+def _egress_times(frame_times, ev, timing: TimedWire) -> torch.Tensor:
+    """Arrival times at the first merge input: departure + fixed sender path
+    + the uplink lane's wait of each event's egress rank (computed on the
+    unpacked egress, so the order-preserving uplink pack cannot change
+    them)."""
+    wait = queue_wait_i32(_rank(ev), timing.uplink_queue)
+    t = frame_times.to(torch.int32) + timing.sender_fixed_ns + wait
+    return torch.where(ev, t, torch.zeros_like(t))
+
+
+def _flow_masks(lvl: LevelPlan, device):
+    """Static uplink masks of one level: ``flow_ok`` (traffic survives) and
+    ``detoured`` (travels a detour), bool[n_ent]; ``(None, None)`` when
+    the level's uplinks are healthy."""
+    if lvl.uplink_ok is None:
+        return None, None
+    detoured = ~lvl.uplink_ok & (lvl.detour >= 0)
+    return _const(lvl.routable, device), _const(detoured, device)
+
+
+def _down_mask(lvl: LevelPlan, ent: np.ndarray, device):
+    """Per-leaf downlink health of one level, or ``None`` when healthy."""
+    if lvl.downlink_ok is None:
+        return None
+    return _const(lvl.downlink_ok[ent], device)
+
+
+def _detour_penalty(lvl: LevelPlan, timing: TimedWire, valid) -> torch.Tensor:
+    """Timed cost of the extension-lane detour: one extra crossing of this
+    level plus the host lane's wait of the event's rank in the stream."""
+    extra = (lvl.extra_ns if lvl.extra_ns is not None
+             else timing.second_layer_extra_ns)
+    return extra + queue_wait_i32(_rank(valid), timing.uplink_queue)
+
+
+# ---------------------------------------------------------------------------
+# Stacked executor
+# ---------------------------------------------------------------------------
+
+
+def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
+                      timing: TimedWire | None = None, health=None
+                      ) -> tuple[EventFrame, ExchangeDrops]:
+    """One N-level hop-graph exchange round, all leaves on one device.
+
+    Args:
+      state: routing state with stacked per-leaf ``fwd_tables`` /
+        ``rev_tables`` (``aggregator.RouterState``; its ``route_enables``
+        are ignored — enables live in the plan).
+      frames: per-leaf egress frames, ``[..., n_nodes, cap_in]``; leading
+        dims are independent batch rows, all exchanged in one pass.
+      plan: compiled hop graph; ``exchange_mode`` "routed" builds each
+        destination's stream from its enabled source entities only, with
+        observables bit-identical to "gather".
+      timing: timed datapath (``latency.timed_wire``): ``frames.times`` are
+        int32 departures and the ingress ``times`` arrivals; ``None`` keeps
+        the untimed wire (ingress times are zeros).
+      health: dynamic health overlays are not ported yet (ROADMAP.md queue
+        1, item 7).
+
+    Returns:
+      (ingress frames [..., n_nodes, capacity], ExchangeDrops of
+      int32[..., n_nodes]).
+    """
+    if health is not None:
+        raise NotImplementedError(
+            "dynamic health overlays are not ported yet (ROADMAP.md queue 1, "
+            "item 7); compile a statically degraded plan with degrade_spec")
+    levels = plan.levels
+    *lead, n, cap_in = frames.labels.shape
+    if n != plan.n_nodes:
+        raise ValueError(f"frames carry {n} leaf streams but the plan wires "
+                         f"{plan.n_nodes}")
+    dev = frames.labels.device
+    routed = plan.exchange_mode == "routed"
+
+    # The plain 1-level untimed star is one exchange-kernel round.
+    if (len(levels) == 1 and timing is None
+            and levels[0].link_capacity is None and not plan.degraded
+            and not routed):
+        out_l, out_v, dropped = fused_exchange(
+            frames.labels, frames.valid, state.fwd_tables, state.rev_tables,
+            _const(levels[0].enables, dev), capacity=plan.capacity)
+        zeros = torch.zeros_like(dropped)
+        return (EventFrame(labels=out_l, times=torch.zeros_like(out_l),
+                           valid=out_v),
+                ExchangeDrops(congestion=dropped, uplink=zeros,
+                              unroutable=zeros, rerouted=zeros))
+
+    b = math.prod(lead)
+    wire, fwd_en = routing.lookup_fwd(state.fwd_tables,
+                                      frames.labels.reshape(b, n, cap_in))
+    ev = frames.valid.reshape(b, n, cap_in) & fwd_en
+    times = (None if timing is None else
+             _egress_times(frames.times.reshape(b, n, cap_in), ev, timing))
+
+    # Leaf uplink: pack each leaf's egress to its lane capacity.
+    u0 = levels[0].link_capacity
+    zeros = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    uplink = zeros
+    if u0 is not None:
+        packed, uplink = make_frame(wire, times, ev, u0)
+        wire, ev = packed.labels, packed.valid
+        if timing is not None:
+            times = packed.times
+
+    leaf = np.arange(n)
+    # U_i streams, one per tier-i entity (tier 0 = leaf): [b, n_ent, len].
+    cur_l, cur_v, cur_t = wire, ev, times
+    cur_len = u0 if u0 is not None else cap_in
+    gsize = 1                                  # leaves per tier-i entity
+    unroutable = rerouted = zeros
+    recv_ok = None                             # per-leaf downlink path health
+    parts_l, parts_v, parts_t = [], [], []
+    for i, lvl in enumerate(levels):
+        f = lvl.fan_in
+        gnext = gsize * f
+        n_grp = n // gnext
+        ent = leaf // gsize                    # each leaf's entity here
+        ent_t = _const(ent, dev)
+
+        # Static uplink health gates the entity streams before they join
+        # this merge and before they cascade upward: detoured streams keep
+        # their slot but pay the detour on the timed lane; streams with no
+        # surviving route are masked and counted unroutable.
+        flow_ok, detoured = _flow_masks(lvl, dev)
+        if flow_ok is not None:
+            counts = cur_v.sum(dim=-1, dtype=torch.int32)
+            if timing is not None:
+                pen = _detour_penalty(lvl, timing, cur_v)
+                cur_t = torch.where(detoured[:, None] & cur_v, cur_t + pen,
+                                    cur_t)
+            cur_v = cur_v & flow_ok[:, None]
+            unroutable = unroutable + torch.where(flow_ok, 0, counts)[:, ent_t]
+            rerouted = rerouted + torch.where(detoured, counts, 0)[:, ent_t]
+        # Downlink health accumulates along each leaf's descent path.
+        d_ok = _down_mask(lvl, ent, dev)
+        if d_ok is not None:
+            recv_ok = d_ok if recv_ok is None else recv_ok & d_ok
+
+        s_len = f * cur_len
+        anc = _const(leaf // gnext, dev)       # tier-(i+1) ancestor per leaf
+        if routed:
+            # Only the hop-graph edges enter the merge: each destination
+            # takes its enabled source entities' streams as int16 wire words
+            # (padded to the largest in-degree with dead segments, whose
+            # `live` lane is False), in ascending source order.
+            src_flat, live, deg = _routed_leaf_maps(lvl.enables, i, n,
+                                                    gsize, f)
+            src_t = _const(src_flat.astype(np.int64), dev)
+            n_ent = n_grp * f
+            sel = pack_wire16(cur_l, cur_v).reshape(b, n_grp, f, cur_len)
+            sel = sel[:, :, src_t].reshape(b, n_ent, deg * cur_len)
+            part_l = sel.repeat_interleave(n // n_ent, dim=1)
+            part_v = _const(live, dev)[:, :, None].expand(
+                n, deg, cur_len).reshape(n, deg * cur_len).expand(b, -1, -1)
+        else:
+            # The concat of the children's streams, gated per destination.
+            s_l = cur_l.reshape(b, n_grp, s_len)
+            s_v = cur_v.reshape(b, n_grp, f, cur_len)
+            child = ent % f
+            gate = lvl.enables.T[child]        # [n, f] src child → this dest
+            if i > 0:
+                gate = gate & (np.arange(f)[None, :] != child[:, None])
+            part_l = s_l[:, anc]
+            part_v = (s_v[:, anc] & _const(gate, dev)[None, :, :, None]
+                      ).reshape(b, n, s_len)
+        if recv_ok is not None:
+            if routed:
+                # Count the embedded valid bits, not the slot-level lane.
+                lost = (unpack_wire16(part_l)[1] & part_v).sum(
+                    dim=-1, dtype=torch.int32)
+            else:
+                lost = part_v.sum(dim=-1, dtype=torch.int32)
+            part_v = part_v & recv_ok[:, None]
+            unroutable = unroutable + torch.where(recv_ok, 0, lost)
+        parts_l.append(part_l)
+        parts_v.append(part_v)
+        if timing is not None:
+            if routed:
+                sel_t = cur_t.reshape(b, n_grp, f, cur_len)[:, :, src_t]
+                parts_t.append(sel_t.reshape(b, n_ent, deg * cur_len)
+                               .repeat_interleave(n // n_ent, dim=1))
+            else:
+                parts_t.append(cur_t.reshape(b, n_grp, s_len)[:, anc])
+
+        if i + 1 < len(levels):
+            # U_{i+1}: each tier-(i+1) entity uplinks its whole aggregated
+            # stream (ungated); timed events pay the crossing extra plus the
+            # wait of their rank, and the pack cascades.
+            nxt = levels[i + 1]
+            s_l = cur_l.reshape(b, n_grp, s_len)
+            s_vf = cur_v.reshape(b, n_grp, s_len)
+            s_t = None
+            if timing is not None:
+                extra = (nxt.extra_ns if nxt.extra_ns is not None
+                         else timing.second_layer_extra_ns)
+                t = (cur_t.reshape(b, n_grp, s_len) + extra
+                     + queue_wait_i32(_rank(s_vf), timing.uplink_queue))
+                s_t = torch.where(s_vf, t, torch.zeros_like(t))
+            if nxt.link_capacity is not None:
+                up, drop = make_frame(s_l, s_t, s_vf, nxt.link_capacity)
+                cur_l, cur_v, cur_len = up.labels, up.valid, nxt.link_capacity
+                cur_t = up.times if timing is not None else None
+                uplink = uplink + drop[:, anc]
+            else:
+                cur_l, cur_v, cur_t, cur_len = s_l, s_vf, s_t, s_len
+            gsize = gnext
+
+    outs = fused_merge_pack(
+        torch.cat(parts_l, dim=-1), torch.cat(parts_v, dim=-1),
+        state.rev_tables, capacity=plan.capacity,
+        seg_lens=merge_segments(plan, cap_in),
+        compact=plan.compact,
+        times=None if timing is None else torch.cat(parts_t, dim=-1),
+        queue=None if timing is None else timing.queue)
+    if timing is None:
+        out_l, out_v, dropped = outs
+        out_t = torch.zeros_like(out_l)
+    else:
+        # Receiver-side fixed path, after the merge's destination queue.
+        out_l, out_v, out_t, dropped = outs
+        out_t = torch.where(out_v, out_t + timing.recv_fixed_ns,
+                            torch.zeros_like(out_t))
+    def unflat(x):
+        return x.reshape(*lead, *x.shape[1:])
+
+    return (EventFrame(labels=unflat(out_l), times=unflat(out_t),
+                       valid=unflat(out_v)),
+            ExchangeDrops(congestion=unflat(dropped), uplink=unflat(uplink),
+                          unroutable=unflat(unroutable),
+                          rerouted=unflat(rerouted)))

@@ -1,0 +1,212 @@
+"""Streaming multi-chip emulation — the closed loop, one step at a time.
+
+Port of the event mode of ``src/repro/snn/stream.py::run_stream``.  Every step:
+
+    chip step (synapse product + neuron update, all chips at once)
+      → egress tap (label grid + capacity frame)
+      → one exchange round through the compiled hop graph
+      → ingress decode into synapse-row drives, written to the delay line
+
+The reference scans this body with ``lax.scan``; the port runs a Python
+loop over steps, each step covering all batch rows.  The delay line is a
+ring buffer on the port's own copy of ``state.inflight``, written in place
+(slot ``t % delay``), and rolled back to shift order on exit, so outputs
+and final state match the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import fabric as fablib
+from repro_torch.core import latency as latlib
+from repro_torch.core.events import make_frame
+from repro_torch.snn import chip as chiplib
+from repro_torch.snn import network as netlib
+
+
+class StreamOut(NamedTuple):
+    """Result of a streamed emulation run."""
+
+    state: netlib.NetworkState
+    spikes: torch.Tensor          # f32[T, n_chips, batch, n_neurons]
+    dropped: torch.Tensor         # i32[T, n_chips, batch] egress + congestion
+    uplink_dropped: torch.Tensor  # i32[T, n_chips, batch] uplink-pack drops
+    # Timed mode only (zero-width otherwise): the chip-to-chip wire latency
+    # of every delivered ingress event, in ns; ``latency_valid`` masks the
+    # filled slots.
+    latency_ns: torch.Tensor      # i32[T, n_chips, batch, capacity | 0]
+    latency_valid: torch.Tensor   # bool[T, n_chips, batch, capacity | 0]
+    # Degraded-plan accounting (zeros on a healthy fabric).
+    unroutable: torch.Tensor      # i32[T, n_chips, batch]
+    rerouted: torch.Tensor        # i32[T, n_chips, batch]
+    plasticity: None = None       # online plasticity is not ported yet
+
+
+_LATENCY_STAT_KEYS = ("median_ns", "p01_ns", "p99_ns", "jitter_ns",
+                      "jitter_frac")
+
+
+def masked_latency_stats(latency_ns, latency_valid, *,
+                         strict: bool = True) -> dict[str, float]:
+    """Percentile summary of the valid latency samples plus a ``count``.
+    Zero delivered events raises under ``strict``; ``strict=False`` returns
+    NaN stats with ``count == 0``."""
+    lats = latency_ns[latency_valid]
+    count = int(lats.numel())
+    if count == 0:
+        if strict:
+            raise ValueError("no delivered events (or run_stream ran "
+                             "untimed — pass timed=True)")
+        return {**{k: float("nan") for k in _LATENCY_STAT_KEYS}, "count": 0}
+    stats = latlib.latency_statistics(lats)
+    stats["count"] = count
+    return stats
+
+
+def stream_latency_stats(out: StreamOut, *,
+                         strict: bool = True) -> dict[str, float]:
+    """``masked_latency_stats`` of a timed stream's wire latencies."""
+    return masked_latency_stats(out.latency_ns, out.latency_valid,
+                                strict=strict)
+
+
+def egress_label_grid(cfg: netlib.NetworkConfig, device) -> torch.Tensor:
+    """int32[n_chips, n_neurons]: chip << 9 | neuron, the egress labels."""
+    neurons = torch.arange(cfg.chip.n_neurons, dtype=torch.int32,
+                           device=device)
+    chips = torch.arange(cfg.n_chips, dtype=torch.int32,
+                         device=device) << netlib.NEURON_BITS
+    return chips[:, None] + neurons[None, :]
+
+
+def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
+                    cfg: netlib.NetworkConfig, plan: fablib.FabricPlan,
+                    timing: latlib.TimedWire | None = None):
+    """The exchange stage of one step for every batch row at once: egress
+    tap → ``fabric_route_step`` → ingress decode.
+
+    ``spikes``: f32[n_chips, batch, n_neurons] (any leading layout with the
+    chips first and the neurons last works: extra middle dims are more
+    independent rows).  Every spike of the window departs at its open (time
+    0 on the timed lane), so ingress times are the wire latencies.
+
+    Returns (row drives f32[n_chips, ..., n_rows], dropped, uplink,
+    latency_ns, latency_valid, unroutable, rerouted), each with the chips
+    first; the latency planes are zero-width when untimed.
+    """
+    n, *mid, n_neurons = spikes.shape
+    valid = spikes.reshape(n, -1, n_neurons).transpose(0, 1) > 0.5
+    labels = egress_label_grid(cfg, spikes.device).expand(valid.shape)
+    times = None if timing is None else torch.zeros_like(labels)
+    frames, egress_drop = make_frame(labels, times, valid, cfg.capacity)
+    ingress, drops = fablib.fabric_route_step(params.router, frames, plan,
+                                              timing=timing)
+    drives = chiplib.labels_to_rows(ingress.labels, ingress.valid,
+                                    params.row_of_label, cfg.chip.n_rows)
+    if timing is None:
+        lat = ingress.labels[..., :0]
+        lat_valid = ingress.valid[..., :0]
+    else:
+        lat, lat_valid = ingress.times, ingress.valid
+
+    def chips_first(x):
+        return x.transpose(0, 1).reshape(n, *mid, *x.shape[2:])
+
+    return tuple(chips_first(x) for x in (
+        drives, egress_drop + drops.congestion, drops.uplink, lat, lat_valid,
+        drops.unroutable, drops.rerouted))
+
+
+def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
+               ext_drives: torch.Tensor, cfg: netlib.NetworkConfig, *,
+               mode: str = "event", topology: str = "star",
+               fabric: fablib.FabricPlan | None = None, timed: bool = False,
+               overlap: bool = False, faults=None, plasticity=None,
+               slot_mask=None, device=None) -> StreamOut:
+    """Run the closed-loop emulation over ``ext_drives``.
+
+    Args:
+      ext_drives: f32[T, n_chips, batch, n_rows] external input per step.
+      mode: ``"event"``, the faithful datapath (the dense surrogate is not
+        ported yet).
+      topology: without ``fabric``, ``"star"`` compiles a 1-level plan
+        whose enables are ``params.router.route_enables``.
+      fabric: a compiled ``FabricPlan`` (leaf count and ingress capacity
+        must match ``cfg``); its levels own the route enables, and only the
+        router's LUTs are read.  Either exchange mode.
+      timed: thread the int32 timestamp lane through the exchange
+        (``latency.timed_wire(cfg.latency)``) and report per-event wire
+        latencies; the functional outputs equal the untimed run's.
+      overlap, faults, plasticity, slot_mask: not ported yet (ROADMAP.md
+        queue 1, items 6 and 7); they raise ``NotImplementedError``.
+      device: where the run happens (default CUDA; raises if absent).
+        Inputs are moved there.
+
+    Returns:
+      ``StreamOut`` with the chips-first per-step outputs and the final
+      state (delay line in shift order).
+    """
+    if mode == "dense":
+        raise NotImplementedError("dense mode is not ported yet "
+                                  "(ROADMAP.md queue 1, item 9)")
+    if mode != "event":
+        raise ValueError(f"unknown mode: {mode!r}")
+    if topology == "hierarchical":
+        raise NotImplementedError("the hierarchical topology flag is not "
+                                  "ported yet (ROADMAP.md queue 1, item 7); "
+                                  "pass a compiled 2-level plan as fabric=")
+    if topology != "star":
+        raise ValueError(f"unknown topology: {topology!r}")
+    for name, asked, item in (("overlap", overlap, 7),
+                              ("faults", bool(faults), 7),
+                              ("plasticity", plasticity is not None, 6),
+                              ("slot_mask", slot_mask is not None, 6)):
+        if asked:
+            raise NotImplementedError(f"run_stream({name}=...) is not ported "
+                                      f"yet (ROADMAP.md queue 1, item {item})")
+    device = resolve_device(device)
+    if fabric is not None:
+        if fabric.n_nodes != cfg.n_chips:
+            raise ValueError(f"fabric plan wires {fabric.n_nodes} leaves "
+                             f"but the network has {cfg.n_chips} chips")
+        if fabric.capacity != cfg.capacity:
+            raise ValueError(f"fabric plan ingress capacity "
+                             f"{fabric.capacity} != cfg.capacity "
+                             f"{cfg.capacity}")
+        plan = fabric
+    else:
+        plan = fablib.compile_fabric(fablib.star_spec(
+            cfg.n_chips, cfg.capacity, enables=params.router.route_enables))
+
+    params = netlib.to_device(params, device)
+    chips = netlib.to_device(state.chips, device)
+    # The ring buffer is written in place on this copy, never on the caller's.
+    inflight = state.inflight.to(device, copy=True)
+    ext_drives = ext_drives.to(device)
+    n_steps = ext_drives.shape[0]
+    delay = inflight.shape[0]
+    timing = latlib.timed_wire(cfg.latency) if timed else None
+
+    steps = []
+    for t in range(n_steps):
+        slot = t % delay
+        # Ingress: the slot written `delay` steps ago.
+        drive = ext_drives[t] + inflight[slot]
+        chips, spikes = chiplib.chip_step(params.chips, chips, drive, cfg.chip)
+        routed, *stats = exchange_spikes(params, spikes, cfg, plan, timing)
+        # Egress: the consumed slot is the one due `delay` steps out.
+        inflight[slot] = routed
+        steps.append((spikes, *stats))
+    spikes, dropped, uplink, lat, lat_valid, unroutable, rerouted = (
+        torch.stack(x) for x in zip(*steps))
+    # Shift-register order: slot `n_steps % delay` holds the oldest frame.
+    if delay > 1 and n_steps % delay:
+        inflight = torch.roll(inflight, -(n_steps % delay), dims=0)
+    return StreamOut(state=netlib.NetworkState(chips=chips, inflight=inflight),
+                     spikes=spikes, dropped=dropped, uplink_dropped=uplink,
+                     latency_ns=lat, latency_valid=lat_valid,
+                     unroutable=unroutable, rerouted=rerouted)
