@@ -6,18 +6,32 @@ Phases, each reported on its own lines:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of the CUDA kernels from
-   ``src/repro_torch/kernels/**/csrc`` into ``build/repro_torch/``.
+   ``src/repro_torch/kernels/**/csrc`` into ``build/repro_torch/`` (one
+   ``nvcc`` per source, all at once).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, every variant, bit-exact; device time per launch
-   (CUDA-graph replay), the plain version's time, and the byte bound.
-3. The main path at full width (512 neurons x 256 rows per chip, batch 8,
-   64 steps): ``run_stream`` on FULL_BACKPLANE (untimed gather: the
+   paths' shapes and in every variant: the exchange kernels bit-exact, the
+   LM kernels within a stated tolerance; device time per launch (CUDA-graph
+   replay), the plain version's time, a library call's time where one
+   computes the same function, and the bound.
+3. The SNN main path at full width (512 neurons x 256 rows per chip, batch
+   8, 64 steps): ``run_stream`` on FULL_BACKPLANE (untimed gather: the
    exchange kernel), EXT_4CASE_96CHIP (timed, gather and routed) and
    PROJECTED_120CHIP (timed), with each kernel's launch count checked.
 4. The port on the card against the port on the CPU: same network, dyadic
    weights and drives, 16 steps; integer outputs equal up to near-threshold
    spike flips (``repro_torch.parity``), the exchange stage bit-exact under
    teacher forcing.
+5. The LM main path: zamba2-7b at full width and depth (81 layers, random
+   weights from a seed, float32 parameters, bf16 activations,
+   ``attention_impl="pallas"``) serving batch 4 x prompt 2048 with 32 greedy
+   new tokens through ``repro_torch.launch.serve.generate``; prefill time,
+   decode tokens/s, peak device memory, each kernel's launch count checked
+   (13 flash-attention and 81 linear-scan launches per prefill, two
+   prefills with the warm pass), and a profiler pass over one prefill and
+   one decode step.
+6. The LM on the card against the CPU: the same converted weights at full
+   width, 7 layers, float32, batch 2 x prompt 64; prefill and decode-step
+   logits within a stated tolerance, and the 4 greedy tokens equal.
 
 Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -26,24 +40,35 @@ either it fails before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device")
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch import parity  # noqa: E402
+from repro_torch import convert, parity  # noqa: E402
 from repro_torch.analysis import scenarios  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import fabric as fablib  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.linear_scan.ref import linear_scan_chunked  # noqa: E402
 from repro_torch.kernels.spike_router import ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.snn import network as netlib  # noqa: E402
 from repro_torch.snn import stream  # noqa: E402
 from repro_torch.core.latency import timed_wire  # noqa: E402
@@ -56,12 +81,25 @@ BATCH, STEPS, CHECK_STEPS, PROFILE_STEPS = 8, 64, 16, 8
 DRIVE_P = 0.035
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 OPS_PER_S = 67e12                # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 KERNEL_SOURCES = {
     "merge_pack": ("src/repro_torch/kernels/spike_router/csrc/merge_pack.cu",
                    "src/repro/kernels/spike_router/spike_router.py:498"),
     "exchange": ("src/repro_torch/kernels/spike_router/csrc/exchange.cu",
                  "src/repro/kernels/spike_router/spike_router.py:379"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:129"),
+    "linear_scan": ("src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+                    "src/repro/kernels/linear_scan/linear_scan.py:106"),
 }
+# The LM main path (phase 5) and the card-against-CPU check (phase 6).
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT, CHECK_NEW = 7, 2, 64, 4
+# Phase 6: float32 on both sides; cuBLAS and the two kernels sum in another
+# order than the CPU's BLAS and the plain versions, over 7 layers of width
+# 3584 (logits are about 1 in size).
+CHECK_LOGIT_TOL = 1e-3
 # Main-path runs of phase 3: (scenario, exchange mode, timed).
 MAIN_PATHS = (("FULL_BACKPLANE", "gather", False),
               ("EXT_4CASE_96CHIP", "gather", True),
@@ -100,9 +138,9 @@ def graph_ms(fn, launches: int = 50, replays: int = 20) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
-def eager_ms(fn, iters: int = 20) -> float:
+def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Time per call as called (host overhead included), CUDA events."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -114,9 +152,10 @@ def eager_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: int, ops_done: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops_done: int,
+          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_done / OPS_PER_S * 1e3
+    t_ops = ops_done / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -310,6 +349,193 @@ def phase2(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, LM kernels: flash attention and the linear scan
+# ---------------------------------------------------------------------------
+
+# One bf16 ulp, relative: both sides round an f32 result to bf16.
+BF16_ULP = 2.0 ** -7
+
+
+def check_close(what: str, got, want, rel: float, abs_tol: float,
+                reason: str) -> float:
+    """Elementwise |got - want| <= rel·|want| + abs_tol, finite; prints the
+    max abs error beside the tolerance and its reason, raises if exceeded."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    excess = float((diff - rel * want.abs()).max())
+    ok = bool(torch.isfinite(got).all()) and excess <= abs_tol
+    print(f"phase 2: {what}: max abs err {err:.3g} (max |ref| "
+          f"{float(want.abs().max()):.3g}); tolerance |err| <= {rel:.3g}"
+          f"·|ref| + {abs_tol:.3g}: {reason}: {'ok' if ok else 'EXCEEDED'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{what}: kernel != plain (max abs err {err}, "
+                             f"excess {excess} over {abs_tol})")
+    return err
+
+
+def unique_bytes(t: torch.Tensor) -> int:
+    """Bytes a function must read of ``t``: its distinct elements (a
+    broadcast view's stride-0 dims count once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def flash_inputs(gen, b, hq, hkv, s, d, dtype):
+    def rnd(h):
+        return torch.randn((b, h, s, d), generator=gen, device=DEV).to(dtype)
+    return rnd(hq), rnd(hkv), rnd(hkv)
+
+
+def mamba_inputs(gen, b, h, t, st, hd, dtype):
+    """The scan's operands as ``mamba2_forward`` builds them at zamba2's
+    shapes: q = C and k = dt·B shared by the heads (q a stride-0 view),
+    v = x per head, w = dt·a a float32 view shared by the K channels, with
+    zamba2's decay rates a = -linspace(1, 16)."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    x = F.silu(rnd(b, t, h * hd)).to(dtype)
+    b_mat = F.silu(rnd(b, t, st)).to(dtype)
+    c_mat = F.silu(rnd(b, t, st)).to(dtype)
+    dt = F.softplus(rnd(b, t, h))
+    a = -torch.linspace(1.0, 16.0, h, device=DEV)
+    w = (dt * a).transpose(1, 2)[..., None].expand(b, h, t, st)
+    q = c_mat[:, None].expand(b, h, t, st)
+    k = b_mat[:, None].expand(b, h, t, st) \
+        * dt.transpose(1, 2)[..., None].to(dtype)
+    v = x.reshape(b, t, h, hd).transpose(1, 2)
+    return q, k, v, w, None
+
+
+def rwkv_inputs(gen, b, h, t, kd, dtype):
+    """Bonus-mode operands at RWKV6's shapes: per-channel data-dependent
+    decays w = -exp(base + noise), base from -6 to -0.5 across channels,
+    and a bonus u."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    base = torch.linspace(-6.0, -0.5, h * kd, device=DEV).reshape(h, kd)
+    w = -torch.exp(base[None, :, None, :] + 0.5 * rnd(b, h, t, kd))
+    return (rnd(b, h, t, kd).to(dtype), (0.5 * rnd(b, h, t, kd)).to(dtype),
+            rnd(b, h, t, kd).to(dtype), w, 0.5 * rnd(h, kd))
+
+
+def phase2_lm(results: dict) -> None:
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    f32_reason = "float32 sums in another order than the plain version"
+    bf16_reason = ("bf16 output, one ulp apart where the two f32 results "
+                   "round apart")
+
+    # Flash attention.  (case, (b, hq, hkv, s, d, dtype), causal, tolerance)
+    flash_cases = (
+        ("main path: b4 h32 s2048 d112 bf16 causal",
+         (4, 32, 32, 2048, 112, bf16), True, (BF16_ULP, 1e-5, bf16_reason)),
+        ("GQA group 4: b2 h32/8 s1024 d128 bf16 causal",
+         (2, 32, 8, 1024, 128, bf16), True, (BF16_ULP, 1e-5, bf16_reason)),
+        ("ragged s2000: b1 h8 d112 bf16 causal", (1, 8, 8, 2000, 112, bf16),
+         True, (BF16_ULP, 1e-5, bf16_reason)),
+        ("f32: b2 h8 s1024 d112 causal", (2, 8, 8, 1024, 112, f32), True,
+         (0.0, 2e-5, f32_reason)),
+        ("f32: b1 h4/2 s1000 d64 not causal", (1, 4, 2, 1000, 64, f32), False,
+         (0.0, 2e-5, f32_reason)),
+    )
+    err = 0.0
+    for i, (name, shape, causal, tol) in enumerate(flash_cases):
+        q, k, v = flash_inputs(gen, *shape)
+        got = flash_ops.flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"flash_attention {name}", got, want,
+                                   *tol))
+        if i == 0:
+            main = (q, k, v)
+        del q, k, v, got, want
+    q, k, v = main
+    b, h, s, d = q.shape
+    scale = 1.0 / d ** 0.5
+    # Bytes: q, k, v read once, the output written once; operations: the
+    # two products over the causal half (keys at or before each query).
+    nbytes = 4 * q.numel() * q.element_size()
+    nops = 4 * b * h * d * (s * (s + 1) // 2)
+    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    results["flash_attention"] = dict(
+        max_abs_err=err,
+        ms=graph_ms(lambda: flash_ops.flash_attention(q, k, v), 5, 2),
+        plain_ms=eager_ms(lambda: attention_ref(q, k, v), 2, 1),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), 5, 2),
+        bound_ms=b_ms, bound_by=b_by)
+    del main, q, k, v
+
+    # Linear scan.  (case, make inputs, mode, tolerance)
+    scan_reason = ("bf16 output one ulp apart, and __expf and float32 sums "
+                   "and cumsums in another order (1e-3 of the output's scale)")
+    scan_cases = (
+        ("main path: mamba2 b4 h112 t2048 k64 v64 bf16 inclusive",
+         lambda: mamba_inputs(gen, 4, 112, 2048, 64, 64, bf16), "inclusive",
+         (BF16_ULP, 1e-3, scan_reason)),
+        ("bonus: rwkv6 b2 h64 t1024 k64 v64 bf16",
+         lambda: rwkv_inputs(gen, 2, 64, 1024, 64, bf16), "bonus",
+         (BF16_ULP, 1e-3, scan_reason)),
+        ("ragged t1000: mamba2 b2 h16 bf16 inclusive",
+         lambda: mamba_inputs(gen, 2, 16, 1000, 64, 64, bf16), "inclusive",
+         (BF16_ULP, 1e-3, scan_reason)),
+        ("strong decays up to e^-10 per step: b1 h8 t512 f32 inclusive",
+         lambda: (*(torch.randn((1, 8, 512, 64), generator=gen, device=DEV)
+                    for _ in range(3)),
+                  -10 * torch.rand((1, 8, 512, 64), generator=gen,
+                                   device=DEV), None),
+         "inclusive", (0.0, 1e-3, "__expf and float32 cumsums in another "
+                       "order at |b| ~ 300 (1e-3 of the output's scale)")),
+    )
+    err = 0.0
+    for i, (name, make, mode, (rel, abs_rel, reason)) in enumerate(scan_cases):
+        args = make()
+        got = scan_ops.linear_scan(*args, mode=mode)
+        chunk = scan_ops.chunk_for(args[0].shape[2])
+        want = linear_scan_chunked(*args, mode=mode, chunk=chunk).to(got.dtype)
+        torch.cuda.synchronize()
+        abs_tol = abs_rel * float(want.float().abs().max())
+        err = max(err, check_close(f"linear_scan {name}", got, want, rel,
+                                   abs_tol, reason))
+        if i == 0:
+            main = args
+        del args, got, want
+    q, k, v, w, _ = main
+    kdim, vdim = q.shape[-1], v.shape[-1]
+    bsz, heads, t = q.shape[:3]
+    chunk = scan_ops.chunk_for(t)
+    # Bytes: the distinct bytes of q, k, v, w read once and y written once.
+    # Operations: the chunked form's multiply-adds per chunk (inter-chunk
+    # and carry products, and the causal half of A and of A @ V).
+    nbytes = (sum(map(unique_bytes, (q, k, v, w)))
+              + v.numel() * q.element_size())
+    per_chunk = 2 * (2 * chunk * kdim * vdim
+                     + chunk * (chunk + 1) // 2 * (kdim + vdim))
+    nops = bsz * heads * (t // chunk) * per_chunk
+    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    results["linear_scan"] = dict(
+        max_abs_err=err,
+        ms=graph_ms(lambda: scan_ops.linear_scan(q, k, v, w), 5, 2),
+        plain_ms=eager_ms(lambda: linear_scan_chunked(q, k, v, w,
+                                                      chunk=chunk), 2, 1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del main, q, k, v, w
+    for name in ("flash_attention", "linear_scan"):
+        r = results[name]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"phase 2: {name} main-path shape: kernel {r['ms']:.4f} ms "
+              f"(graph replay), plain {r['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -370,11 +596,13 @@ def phase3(launches: dict, gpu: str) -> None:
                   timed=timed, device=DEV)) + f" [{gpu}]", flush=True)
 
 
-def device_breakdown(fn) -> str:
+def device_breakdown(fn, per: int = PROFILE_STEPS, unit: str = "step",
+                     ours: tuple = ("merge_pack_kernel", "exchange_kernel")
+                     ) -> str:
     """Where a short run's time goes, from a torch.profiler trace: the
     card's busy share of the wall time (kernel time summed over the run,
-    under the profiler's own overhead) and the two kernels' share of the
-    busy time."""
+    under the profiler's own overhead) and the share of the busy time in
+    the kernels named ``ours``, over ``per`` steps."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -389,18 +617,19 @@ def device_breakdown(fn) -> str:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     device = {e.key: e.self_device_time_total for e in kernels}
-    per_step = sum(e.count for e in kernels) / PROFILE_STEPS
+    per_step = sum(e.count for e in kernels) / per
     busy = sum(device.values())
     if not busy:
         return "device time not measured (the profiler saw no kernels)"
-    ours = sum(t for k, t in device.items()
-               if "merge_pack_kernel" in k or "exchange_kernel" in k)
+    shares = ", ".join(
+        f"{name} {sum(t for k, t in device.items() if name in k) / busy:.3f}"
+        for name in ours)
     top = ", ".join(f"{k[:40]} {t / busy:.2f}" for k, t in sorted(
         device.items(), key=lambda kv: -kv[1])[:3])
-    return (f"{PROFILE_STEPS} profiled steps: {wall_us / PROFILE_STEPS:.0f} "
-            f"us/step wall, {per_step:.0f} device operations/step, device "
-            f"busy {busy / wall_us:.3f} of it, ported "
-            f"kernels {ours / busy:.3f} of device time; top: {top}")
+    return (f"{per} profiled {unit}s: {wall_us / per:.0f} us/{unit} wall, "
+            f"{per_step:.0f} device operations/{unit}, device busy "
+            f"{busy / wall_us:.3f} of it; share of device time: {shares}; "
+            f"top: {top}")
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +687,147 @@ def phase4() -> None:
               f"bit-exact", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the LM main path, zamba2-7b serving at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def lm_counts() -> dict:
+    return {"flash_attention": flash_ops.flash_attention.launches,
+            "linear_scan": scan_ops.linear_scan.launches}
+
+
+def phase5(launches: dict, gpu: str) -> None:
+    cfg = dataclasses.replace(get_config("zamba2-7b"), attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(0), cfg,
+                            DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"phase 5: zamba2-7b, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params:.4g} float32 parameters on the card in "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
+    prompts = torch.randint(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(1), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    flash_ops.flash_attention.launches = 0
+    scan_ops.linear_scan.launches = 0
+    t0 = time.perf_counter()
+    tokens, stats = serve.generate(cfg, params, prompts, LM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # generate's warm pass runs a second prefill before the timed one.
+    groups = cfg.n_layers // cfg.attn_every
+    want = {"flash_attention": 2 * groups, "linear_scan": 2 * cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"zamba2-7b generate: launches {counts}, "
+                             f"expected {want}")
+    launches.update(counts)
+    if tokens.shape != (LM_BATCH, LM_NEW) or tokens.dtype != torch.int32 \
+            or not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad tokens {tokens.dtype}{tuple(tokens.shape)}")
+    print(f"phase 5: generate batch {LM_BATCH} x prompt {LM_PROMPT} + "
+          f"{LM_NEW} new tokens (greedy, warm pass included in the "
+          f"{wall:.2f} s wall): prefill {stats.prefill_s * 1e3:.1f} ms "
+          f"({LM_BATCH * LM_PROMPT / stats.prefill_s:.0f} prompt tokens/s), "
+          f"decode {stats.decode_s * 1e3:.1f} ms = "
+          f"{stats.tokens_per_s:.1f} tokens/s "
+          f"({stats.decode_s / LM_NEW * 1e3:.1f} ms/step), peak device "
+          f"memory {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB "
+          f"resident before the call), launches {counts} [{gpu}]",
+          flush=True)
+
+    flash_ops.flash_attention.launches = 0
+    scan_ops.linear_scan.launches = 0
+    out = {}
+
+    def one_prefill():
+        out["logits"], out["caches"], _ = lm.prefill(
+            params, {"tokens": prompts}, cfg)
+
+    print("phase 5: prefill: " + device_breakdown(
+        one_prefill, per=1, unit="prefill",
+        ours=("attn_kernel", "scan_kernel")) + f" [{gpu}]",
+        flush=True)
+    logits = out["logits"]
+    dec = serve._splice_prefill(
+        cfg, lm.init_cache(cfg, LM_BATCH, LM_PROMPT + 1, DEV),
+        out.pop("caches"), LM_PROMPT)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    print("phase 5: decode: " + device_breakdown(
+        lambda: lm.decode_step(params, tok, dec, LM_PROMPT, cfg), per=1,
+        unit="decode step", ours=("attn_kernel", "scan_kernel"))
+        + f" [{gpu}]", flush=True)
+    if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} finite="
+                             f"{bool(torch.isfinite(logits).all())}")
+    if lm_counts() != {"flash_attention": groups,
+                       "linear_scan": cfg.n_layers}:
+        raise AssertionError(f"one prefill launched {lm_counts()}")
+    del params, logits, out, tokens, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LM on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def phase6() -> None:
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=CHECK_LAYERS,
+                              dtype="float32", attention_impl="pallas")
+    cpu_params = lm.init_params(torch.Generator().manual_seed(5), cfg, "cpu")
+    arrays = {n: p.numpy() for n, p in cpu_params.named_parameters()}
+    sides = {"cpu": (convert.lm_params_from_numpy(arrays, cfg, "cpu"), "cpu"),
+             "card": (convert.lm_params_from_numpy(arrays, cfg, DEV), DEV)}
+    del cpu_params, arrays
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (CHECK_BATCH, CHECK_PROMPT)).astype(np.int32))
+    res, tok = {}, None
+    for side, (params, dev) in sides.items():      # the CPU first
+        t0 = time.perf_counter()
+        p = prompts.to(dev)
+        logits, caches, _ = lm.prefill(params, {"tokens": p}, cfg)
+        dec = serve._splice_prefill(
+            cfg, lm.init_cache(cfg, CHECK_BATCH, CHECK_PROMPT + 1, dev),
+            caches, CHECK_PROMPT)
+        if tok is None:
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        step_logits, _ = lm.decode_step(params, tok.to(dev), dec,
+                                        CHECK_PROMPT, cfg)
+        tokens, _ = serve.generate(cfg, params, p, CHECK_NEW, warm=False)
+        res[side] = [t.cpu() for t in (logits, step_logits, tokens)]
+        print(f"phase 6: {side} side in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    errs = []
+    for name, a, b in zip(("prefill logits", "decode-step logits"),
+                          res["cpu"][:2], res["card"][:2]):
+        err = float((a - b).abs().max())
+        errs.append(err)
+        if not bool(torch.isfinite(b).all()) or err > CHECK_LOGIT_TOL:
+            raise AssertionError(f"{name}: card vs CPU max abs err {err} > "
+                                 f"{CHECK_LOGIT_TOL}")
+    if not torch.equal(res["cpu"][2], res["card"][2]):
+        raise AssertionError(f"greedy tokens differ: {res['cpu'][2]} vs "
+                             f"{res['card'][2]}")
+    print(f"phase 6: zamba2-7b full width, {CHECK_LAYERS} layers, float32, "
+          f"batch {CHECK_BATCH} x prompt {CHECK_PROMPT}: card == CPU; "
+          f"prefill logits max abs err {errs[0]:.3g}, decode-step logits "
+          f"{errs[1]:.3g} (tolerance {CHECK_LOGIT_TOL}, logits up to "
+          f"{float(res['cpu'][0].abs().max()):.3g}); {CHECK_NEW} greedy "
+          f"tokens equal {res['cpu'][2].tolist()}", flush=True)
+    del sides
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -477,9 +847,12 @@ def main() -> None:
 
     results: dict = {}
     phase2(results)
+    phase2_lm(results)
     launches = {k: 0 for k in KERNEL_SOURCES}
     phase3(launches, gpu)
     phase4()
+    phase5(launches, gpu)
+    phase6()
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():
@@ -488,7 +861,7 @@ def main() -> None:
             name=k, route="cuda", source=source, replaces=replaces,
             launches=launches[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
+            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
         if not launches[k]:
             raise AssertionError(f"{k} never launched on the main path")
     print(json.dumps({"kernels": kernels}))

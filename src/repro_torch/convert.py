@@ -2,9 +2,10 @@
 
 The arrays travel as a flat ``{path: numpy array}`` dict keyed by the JAX
 pytree paths (``chips.weights``, ``router.fwd_tables``,
-``chips.neurons.v``, ...), so the port never sees a JAX object: a caller
-flattens the reference's ``NetworkParams`` / ``NetworkState`` with numpy
-and hands the dict over.
+``chips.neurons.v``, ``layers.mamba.in_proj``, ...), so the port never sees
+a JAX object: a caller flattens the reference's ``NetworkParams`` /
+``NetworkState`` or LM parameter and cache trees with numpy and hands the
+dict over.
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.aggregator import RouterState
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import LMParams, _segments
+from repro_torch.models.ssm import SSMCache
 from repro_torch.snn.chip import ChipParams, ChipState
 from repro_torch.snn.network import NetworkParams, NetworkState
 from repro_torch.snn.neuron import NeuronState
@@ -69,3 +74,44 @@ def network_state_from_numpy(arrays: dict[str, np.ndarray], device=None
             w_adapt=t["chips.neurons.w_adapt"],
             refrac=t["chips.neurons.refrac"])),
         inflight=t["inflight"])
+
+
+# ---------------------------------------------------------------------------
+# LM harness
+# ---------------------------------------------------------------------------
+
+
+def lm_params_from_numpy(arrays: dict[str, np.ndarray], cfg,
+                         device=None):
+    """The LM's parameters from the JAX ``init_params`` tree flattened to
+    ``{path: array}`` (``embed``, ``layers.mamba.in_proj``,
+    ``shared_attn.wq``, ...; each ``Param`` contributes its value under its
+    own path).  Every key the port's ``LMParams`` names must be present,
+    with its shape, and no other; values become float32."""
+    device = resolve_device(device)
+    model = LMParams(cfg, None, device="meta")
+    want = dict(model.named_parameters())
+    extra = sorted(set(arrays) - set(want))
+    if extra:
+        raise KeyError(f"arrays the port does not read: {extra}")
+    t = _tensors(arrays, dict.fromkeys(want, torch.float32), device)
+    model.load_state_dict(t, strict=True, assign=True)
+    return model
+
+
+def lm_caches_from_numpy(arrays: dict[str, np.ndarray], cfg, device=None):
+    """Decode caches from the JAX ``init_cache``/``prefill`` tree flattened
+    to ``{path: array}``: for zamba2 the tuple (Mamba2 cache, shared-block
+    KV cache) as ``0.conv``, ``0.state``, ``1.k``, ``1.v``; otherwise one KV
+    cache per segment (``layers.k``, ``layers.v``).  Conv and K/V leaves
+    take the config's activation dtype, recurrent states stay float32."""
+    dt = dtype_of(cfg.dtype)
+    if cfg.attn_every:
+        t = _tensors(arrays, {"0.conv": dt, "0.state": torch.float32,
+                              "1.k": dt, "1.v": dt}, device)
+        return (SSMCache(conv=t["0.conv"], state=t["0.state"]),
+                KVCache(k=t["1.k"], v=t["1.v"]))
+    names = [seg.name for seg in _segments(cfg)]
+    t = _tensors(arrays, {f"{n}.{f}": dt for n in names for f in "kv"},
+                 device)
+    return {n: KVCache(k=t[f"{n}.k"], v=t[f"{n}.v"]) for n in names}

@@ -14,37 +14,13 @@ it launches its kernel and counts the launch in its ``launches`` attribute.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 
 from repro_torch.core.routing import FWD_TABLE_SIZE, REV_TABLE_SIZE
-from repro_torch.kernels import _build, on_card
+from repro_torch.kernels import INT, PTR, check, launcher, on_card, stream
 from repro_torch.kernels.spike_router import ref as _ref
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.cache
-def _launcher(stem: str, fn: str, argtypes: tuple):
-    """The C entry point ``fn`` of ``csrc/<stem>.cu`` (built at first use),
-    with its argument types declared."""
-    f = getattr(_build.load(stem), fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
-    return f
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
-def _stream() -> _P:
-    return _P(torch.cuda.current_stream().cuda_stream)
 
 
 def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
@@ -86,13 +62,13 @@ def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
     out_l = torch.empty((*lead, n_dst, capacity), dtype=torch.int32, device=dev)
     out_v = torch.empty((*lead, n_dst, capacity), dtype=torch.bool, device=dev)
     dropped = torch.empty((*lead, n_dst), dtype=torch.int32, device=dev)
-    launch = _launcher("exchange", "exchange_launch",
-                       (_P,) * 5 + (_I,) * 5 + (_P,) * 4)
-    _check(launch(labels.data_ptr(), valid.data_ptr(), fwd_luts.data_ptr(),
-                  rev_luts.data_ptr(), enables.data_ptr(), batch, n_src,
-                  cap_in, n_dst, capacity, out_l.data_ptr(),
-                  out_v.data_ptr(), dropped.data_ptr(), _stream()),
-           "exchange")
+    launch = launcher("exchange", "exchange_launch",
+                      (PTR,) * 5 + (INT,) * 5 + (PTR,) * 4)
+    check(launch(labels.data_ptr(), valid.data_ptr(), fwd_luts.data_ptr(),
+                 rev_luts.data_ptr(), enables.data_ptr(), batch, n_src,
+                 cap_in, n_dst, capacity, out_l.data_ptr(),
+                 out_v.data_ptr(), dropped.data_ptr(), stream()),
+          "exchange")
     fused_exchange.launches += 1
     return out_l, out_v, dropped
 
@@ -172,15 +148,15 @@ def fused_merge_pack(labels: torch.Tensor, valid: torch.Tensor,
         times = times.to(torch.int32).contiguous()
         out_t = torch.empty((*lead, capacity), dtype=torch.int32, device=dev)
         service, cc, stall = queue
-    launch = _launcher("merge_pack", "merge_pack_launch",
-                       (_P, _I, _P, _P, _P) + (_I,) * 7 + (_P,) * 5)
-    _check(launch(labels.data_ptr(), int(labels.dtype == torch.int16),
-                  valid.data_ptr(), None if times is None else times.data_ptr(),
-                  rev_lut.data_ptr(), n_tables, rows, n, capacity, service, cc,
-                  stall, out_l.data_ptr(), out_v.data_ptr(),
-                  None if out_t is None else out_t.data_ptr(),
-                  dropped.data_ptr(), _stream()),
-           "merge_pack")
+    launch = launcher("merge_pack", "merge_pack_launch",
+                      (PTR, INT, PTR, PTR, PTR) + (INT,) * 7 + (PTR,) * 5)
+    check(launch(labels.data_ptr(), int(labels.dtype == torch.int16),
+                 valid.data_ptr(), None if times is None else times.data_ptr(),
+                 rev_lut.data_ptr(), n_tables, rows, n, capacity, service, cc,
+                 stall, out_l.data_ptr(), out_v.data_ptr(),
+                 None if out_t is None else out_t.data_ptr(),
+                 dropped.data_ptr(), stream()),
+          "merge_pack")
     fused_merge_pack.launches += 1
     if queue is None:
         return out_l, out_v, dropped
