@@ -9,10 +9,13 @@ Phases, each reported on its own lines:
    ``src/repro_torch/kernels/**/csrc`` into ``build/repro_torch/`` (one
    ``nvcc`` per source, all at once).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and in every variant: the exchange kernels bit-exact, the
-   LM kernels within a stated tolerance; device time per launch (CUDA-graph
-   replay), the plain version's time, a library call's time where one
-   computes the same function, and the bound.
+   paths' shapes and in every variant: the exchange, egress-router and
+   streaming-exchange kernels bit-exact (disabled LUT entries and capacity
+   overflow included), the LIF step within 1e-6, the LM kernels within a
+   stated tolerance; device time per launch (CUDA-graph replay), the plain
+   version's time, a library call's time where one computes the same
+   function, and the bound.  The streaming exchange is also timed against
+   the exchange kernel run with batch = T on the same frames.
 3. The SNN main path at full width (512 neurons x 256 rows per chip, batch
    8, 64 steps): ``run_stream`` on FULL_BACKPLANE (untimed gather: the
    exchange kernel), EXT_4CASE_96CHIP (timed, gather and routed) and
@@ -32,6 +35,18 @@ Phases, each reported on its own lines:
 6. The LM on the card against the CPU: the same converted weights at full
    width, 7 layers, float32, batch 2 x prompt 64; prefill and decode-step
    logits within a stated tolerance, and the 4 greedy tokens equal.
+7. The interconnect path on FULL_BACKPLANE at the catalogue's 5%
+   occupancy: 64 steps of 12 x 64 egress frames through one
+   ``fused_exchange_stream`` launch, equal bit for bit to 64 ``route_step``
+   calls (µs/step of each); then the Node-FPGA egress stage
+   (``route_and_pack``, identity fwd LUT, cap_in 32) on the spike rasters
+   of a phase-3-sized PROJECTED_120CHIP run (batch 8, 120 chips x 512
+   neurons, 64 steps), bit for bit against its plain version.
+8. The LIF path: 64 steps of ``lif_step`` at the chips' full width
+   (8 x 120 chips, 512 neurons), teacher-forced: at each step the kernel
+   and ``lif_step_ref`` start from the plain trajectory's state and agree
+   within 1e-6, spikes equal except where the plain membrane is within
+   1e-6 of the threshold.
 
 Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -42,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import pathlib
 import subprocess
@@ -60,16 +76,21 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch import convert, parity  # noqa: E402
 from repro_torch.analysis import scenarios  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import aggregator as agg  # noqa: E402
 from repro_torch.core import fabric as fablib  # noqa: E402
+from repro_torch.core.events import make_frame  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.lif_step import ops as lif_ops  # noqa: E402
+from repro_torch.kernels.lif_step.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import linear_scan_chunked  # noqa: E402
 from repro_torch.kernels.spike_router import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.snn import network as netlib  # noqa: E402
+from repro_torch.snn import neuron as nrn  # noqa: E402
 from repro_torch.snn import stream  # noqa: E402
 from repro_torch.core.latency import timed_wire  # noqa: E402
 
@@ -87,6 +108,14 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/spike_router/spike_router.py:498"),
     "exchange": ("src/repro_torch/kernels/spike_router/csrc/exchange.cu",
                  "src/repro/kernels/spike_router/spike_router.py:379"),
+    "exchange_stream": (
+        "src/repro_torch/kernels/spike_router/csrc/exchange_stream.cu",
+        "src/repro/kernels/spike_router/spike_router.py:419"),
+    "spike_router": (
+        "src/repro_torch/kernels/spike_router/csrc/spike_router.cu",
+        "src/repro/kernels/spike_router/spike_router.py:343"),
+    "lif_step": ("src/repro_torch/kernels/lif_step/csrc/lif_step.cu",
+                 "src/repro/kernels/lif_step/lif_step.py:50"),
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:129"),
@@ -108,6 +137,18 @@ MAIN_PATHS = (("FULL_BACKPLANE", "gather", False),
 CHECK_PATHS = (("FULL_BACKPLANE", "gather", False),
                ("EXT_4CASE_96CHIP", "gather", True),
                ("PROJECTED_120CHIP", "routed", True))
+# Phase 7 and the streaming/egress cases of phase 2: the egress frame width
+# of each scenario (analysis.scenarios.CASES' cap_in), the catalogue's
+# occupancy, and the Node-FPGA egress pack of the PROJECTED_120CHIP rasters.
+OCC = scenarios.OCC_HEADLINE
+EGRESS_CAP = 32
+# Phases 2 and 8: the LIF step within 1e-6 (both sides round in float32; the
+# kernel keeps the TPU kernel's operation order without FMA, the plain
+# version neuron_step's association of the membrane sum); a spike may flip
+# only where the plain membrane lies within that of the threshold.
+LIF_TOL = 1e-6
+LIF_BATCH, LIF_CHIPS = BATCH, 120
+LIF_SETS = 16                    # 16 x 5.9 MB of inputs: past the 50 MB L2
 
 
 def card() -> str:
@@ -226,6 +267,18 @@ def merge_cost(args, kw, outs) -> tuple[int, int]:
     return nbytes, 10 * (labels.numel() + outs[0].numel())
 
 
+def exchange_cost(labels, valid, enables, outs) -> tuple[int, int]:
+    """Bytes an exchange round must move (frames read once, the fwd entries
+    of the valid events, the enables, the rev entries of the kept events,
+    outputs written once) and its integer operations (about ten per input
+    slot and destination, and per output slot)."""
+    n_dst = enables.shape[1]
+    nbytes = (labels.numel() * 5 + 4 * int(valid.sum()) + enables.numel()
+              + 4 * int(outs[1].sum())
+              + sum(o.numel() * o.element_size() for o in outs))
+    return nbytes, 10 * (labels.numel() * n_dst + outs[0].numel())
+
+
 def phase2(results: dict) -> None:
     gen = torch.Generator(device=DEV).manual_seed(2)
     plans = {name: scenarios.engine_network(name, device="cpu")[::2]
@@ -322,13 +375,7 @@ def phase2(results: dict) -> None:
                                  f"(max abs err {e})")
         err = max(err, e)
         ms = graph_ms(lambda: ops.fused_exchange(*args, capacity=cap))
-        # Bytes: frames read once, the fwd entries of the valid events, the
-        # enables, the rev entries of the kept events, outputs written once.
-        nbytes = (labels.numel() * 5 + 4 * int(valid.sum()) + enables.numel()
-                  + 4 * int(got[1].sum())
-                  + sum(o.numel() * o.element_size() for o in got))
-        nops = 10 * (labels.numel() * n + got[0].numel())
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound(*exchange_cost(labels, valid, enables, got))
         print(f"phase 2: exchange {name}: {BATCH} x {n} x {cap} -> cap "
               f"{cap}, dropped {int(got[2].sum())}, exact; kernel "
               f"{ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
@@ -342,6 +389,210 @@ def phase2(results: dict) -> None:
         eager_ms=eager_ms(lambda: ops.fused_exchange(*args, capacity=cap)),
         bound_ms=b_ms, bound_by=b_by)
     for k, r in results.items():
+        print(f"phase 2: {k}: kernel {r['ms'] * 1e3:.2f} us (graph replay), "
+              f"{r['eager_ms'] * 1e3:.2f} us as called, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
+              f" us ({r['bound_by']})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, the egress router, the streaming exchange and the LIF step
+# ---------------------------------------------------------------------------
+
+
+def egress_case(gen, lead, occ, random_lut):
+    """Egress frames at the PROJECTED_120CHIP shape: labels chip << 9 |
+    neuron and the identity fwd LUT (chips 64 and up hit disabled entries),
+    or labels anywhere in int32 and a random LUT, ~15% disabled."""
+    cfg = netlib.NetworkConfig(n_chips=lead[-1])
+    grid = stream.egress_label_grid(cfg, DEV)
+    valid = torch.rand((*lead, grid.shape[-1]), generator=gen,
+                       device=DEV) < occ
+    if random_lut:
+        labels = torch.randint(-(1 << 31), (1 << 31) - 1, valid.shape,
+                               generator=gen, device=DEV, dtype=torch.int32)
+        table = lut(gen, 1, 1 << 16, 15, 15)[0]
+    else:
+        labels = grid.expand(valid.shape).contiguous()
+        table = agg.identity_router(1, device=DEV).fwd_tables[0]
+    return labels, valid, table
+
+
+def router_cost(labels, valid, outs) -> tuple[int, int]:
+    """Bytes the egress stage must move (labels and flags read once, the
+    LUT entries of the valid events, outputs written once) and its integer
+    operations (about ten per input slot and per output slot)."""
+    nbytes = (labels.numel() * 5 + 4 * int(valid.sum())
+              + sum(o.numel() * o.element_size() for o in outs))
+    return nbytes, 10 * (labels.numel() + outs[0].numel())
+
+
+def lif_inputs(gen, shape):
+    """The JAX suite's LIF inputs: v ~ U(-0.5, 1.2), i ~ 0.3 N(0, 1),
+    drive ~ U(0, 0.5)."""
+    def rnd(*shape_):
+        return torch.rand(shape_, generator=gen, device=DEV)
+    return (rnd(*shape) * 1.7 - 0.5,
+            0.3 * torch.randn(shape, generator=gen, device=DEV),
+            0.5 * rnd(*shape))
+
+
+def lif_check(what, v, i, d):
+    """The kernel and the plain version from one state.  Outside spike
+    flips, v and i_syn agree within LIF_TOL; a spike may flip only where
+    the plain membrane is within LIF_TOL of the threshold.  Returns (max
+    abs err, flips, the plain version's (v, i_syn, spikes))."""
+    got = lif_ops.lif_step(v, i, d)
+    want = lif_step_ref(v, i, d)
+    _, v_pre = nrn.membrane(nrn.NeuronState(
+        v, i, torch.zeros_like(v), torch.zeros_like(v, dtype=torch.int32)), d)
+    torch.cuda.synchronize()
+    agree = got[2] == want[2]
+    near = (v_pre - nrn.LIF.v_th).abs() < LIF_TOL
+    if bool((~agree & ~near).any()):
+        raise AssertionError(f"lif_step {what}: a spike flipped away from "
+                             f"the threshold")
+    err = max(float(torch.where(agree, (g - w).abs(), 0).max())
+              for g, w in zip(got[:2], want[:2]))
+    if err > LIF_TOL:
+        raise AssertionError(f"lif_step {what}: kernel != plain (max abs err "
+                             f"{err} > {LIF_TOL})")
+    return err, int((~agree).sum()), want
+
+
+def phase2_interconnect(results: dict) -> None:
+    gen = torch.Generator(device=DEV).manual_seed(12)
+
+    # The egress router: the main path's shape (phase 7), a random LUT over
+    # labels anywhere in int32, and dense rows that overflow cap_in.
+    lead = (BATCH, 120)
+    err = 0.0
+    main_case = None
+    for name, occ, random_lut in (("main path: identity LUT", OCC, False),
+                                  ("random LUT, 15% disabled", 0.3, True),
+                                  ("dense rows overflow", 0.9, False)):
+        labels, valid, table = egress_case(gen, lead, occ, random_lut)
+        got = ops.route_and_pack(labels, valid, table, capacity=EGRESS_CAP)
+        want = ref.spike_router_ref(labels, valid, table, capacity=EGRESS_CAP)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"spike_router {name}: kernel != plain "
+                                 f"(max abs err {e})")
+        enabled = int(got[1].sum()) + int(got[2].sum())
+        disabled = int(valid.sum()) - enabled
+        if "overflow" in name and not int(got[2].sum()):
+            raise AssertionError(f"spike_router {name}: no overflow")
+        if not disabled:
+            raise AssertionError(f"spike_router {name}: no disabled events")
+        ms = graph_ms(lambda: ops.route_and_pack(labels, valid, table,
+                                                 capacity=EGRESS_CAP))
+        b_ms, b_by = bound(*router_cost(labels, valid, got))
+        print(f"phase 2: spike_router {name}: {tuple(labels.shape)} -> cap "
+              f"{EGRESS_CAP}, {int(valid.sum())} valid, {disabled} disabled, "
+              f"dropped {int(got[2].sum())}, exact; kernel {ms * 1e3:.2f} us, "
+              f"bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+        if main_case is None:
+            main_case = (labels, valid, table, ms, b_ms, b_by)
+        err = max(err, e)
+    labels, valid, table, ms, b_ms, b_by = main_case
+    results["spike_router"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=eager_ms(lambda: ref.spike_router_ref(
+            labels, valid, table, capacity=EGRESS_CAP)),
+        eager_ms=eager_ms(lambda: ops.route_and_pack(
+            labels, valid, table, capacity=EGRESS_CAP)),
+        bound_ms=b_ms, bound_by=b_by)
+
+    # The streaming exchange: FULL_BACKPLANE's T = 64 x 12 sources x 64
+    # egress slots into capacity 256 with its tables (phase 7), then random
+    # tables with disabled entries, random enables and dense traffic into a
+    # capacity that overflows.  Each against its plain version and against
+    # the exchange kernel with batch = T on the same frames.
+    cfg, params, _ = scenarios.engine_network("FULL_BACKPLANE", device=DEV)
+    n = cfg.n_chips
+    cap_in = next(c[2] for c in scenarios.CASES if c[0] == "FULL_BACKPLANE")
+    err = 0.0
+    main_case = None
+    for name, occ, random_luts, cap in (
+            ("main path tables", OCC, False, cfg.capacity),
+            ("random tables overflow", 0.6, True, 64)):
+        labels = ((torch.arange(n, device=DEV, dtype=torch.int32)[:, None]
+                   << 9) + torch.randint(0, 512, (STEPS, n, cap_in),
+                                         generator=gen, device=DEV,
+                                         dtype=torch.int32))
+        valid = torch.rand((STEPS, n, cap_in), generator=gen,
+                           device=DEV) < occ
+        if random_luts:
+            fwd = lut(gen, n, 1 << 16, 15, 15)
+            rev = lut(gen, n, 1 << 15, 16, 16)
+            enables = torch.rand((n, n), generator=gen, device=DEV) < 0.7
+        else:
+            fwd, rev, enables = params.router
+        args = (labels, valid, fwd, rev, enables)
+        got = ops.fused_exchange_stream(*args, capacity=cap)
+        want = ref.exchange_stream_ref(*args, capacity=cap)
+        per_step = ops.fused_exchange(*args, capacity=cap)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(got, want), max_abs_err(got, per_step))
+        if e:
+            raise AssertionError(f"exchange_stream {name}: kernel != plain or "
+                                 f"!= exchange (max abs err {e})")
+        if random_luts and not int(got[2].sum()):
+            raise AssertionError(f"exchange_stream {name}: no overflow")
+        ms = graph_ms(lambda: ops.fused_exchange_stream(*args, capacity=cap))
+        ex_ms = graph_ms(lambda: ops.fused_exchange(*args, capacity=cap))
+        b_ms, b_by = bound(*exchange_cost(labels, valid, enables, got))
+        print(f"phase 2: exchange_stream {name}: T {STEPS} x {n} x {cap_in} "
+              f"-> cap {cap}, steps/block "
+              f"{ops.steps_per_block(STEPS, n, DEV)}, dropped "
+              f"{int(got[2].sum())}, exact and == exchange(batch = T); "
+              f"kernel {ms * 1e3:.2f} us, exchange kernel with batch = T "
+              f"{ex_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
+              flush=True)
+        if main_case is None:
+            main_case = (args, cap, ms, b_ms, b_by)
+        err = max(err, e)
+    args, cap, ms, b_ms, b_by = main_case
+    results["exchange_stream"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=eager_ms(lambda: ref.exchange_stream_ref(*args,
+                                                          capacity=cap)),
+        eager_ms=eager_ms(lambda: ops.fused_exchange_stream(*args,
+                                                            capacity=cap)),
+        bound_ms=b_ms, bound_by=b_by)
+
+    # The LIF step: the chips' full width (phase 8), ragged shapes the TPU
+    # kernel would pad, and the JAX suite's inputs.
+    err, flips = 0.0, 0
+    for shape in ((LIF_BATCH * LIF_CHIPS, 512), (5, 300), (3, 7, 11)):
+        v, i, d = lif_inputs(gen, shape)
+        e, f, _ = lif_check(str(shape), v, i, d)
+        err, flips = max(err, e), flips + f
+        if shape[-1] == 512:
+            main = (v, i, d)
+    v, i, d = main
+    # The 12 MB a launch moves fit in the 50 MB L2, so launches on one input
+    # set read it from the cache.  The kept time cycles through input sets
+    # that together exceed the L2, so each launch reads device memory as
+    # the byte bound assumes; the warm time is printed beside it.
+    sets = itertools.cycle([lif_inputs(gen, v.shape) for _ in range(LIF_SETS)])
+    ms = graph_ms(lambda: lif_ops.lif_step(*next(sets)))
+    warm_ms = graph_ms(lambda: lif_ops.lif_step(v, i, d))
+    print(f"phase 2: lif_step: max abs err {err:.3g} (tolerance {LIF_TOL}), "
+          f"{flips} near-threshold spike flips; kernel {ms * 1e3:.2f} us "
+          f"over {LIF_SETS} input sets, {warm_ms * 1e3:.2f} us on one (L2 "
+          f"warm)", flush=True)
+    # Bytes: three float32 inputs read once, three outputs written once;
+    # operations: 12 float32 operations per neuron.
+    b_ms, b_by = bound(24 * v.numel(), 12 * v.numel())
+    results["lif_step"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=eager_ms(lambda: lif_step_ref(v, i, d)),
+        eager_ms=eager_ms(lambda: lif_ops.lif_step(v, i, d)),
+        bound_ms=b_ms, bound_by=b_by)
+    for k in ("spike_router", "exchange_stream", "lif_step"):
+        r = results[k]
         print(f"phase 2: {k}: kernel {r['ms'] * 1e3:.2f} us (graph replay), "
               f"{r['eager_ms'] * 1e3:.2f} us as called, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
@@ -828,6 +1079,144 @@ def phase6() -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the interconnect path (streaming exchange, egress router)
+# ---------------------------------------------------------------------------
+
+
+def phase7(launches: dict, gpu: str) -> None:
+    # The plain star's streaming exchange against its per-step loop.
+    cfg, params, _ = scenarios.engine_network("FULL_BACKPLANE", device=DEV)
+    cap_in = next(c[2] for c in scenarios.CASES if c[0] == "FULL_BACKPLANE")
+    router = params.router
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    spikes = torch.rand((STEPS, cfg.n_chips, cfg.chip.n_neurons),
+                        generator=gen, device=DEV) < OCC
+    labels = stream.egress_label_grid(cfg, DEV).expand(spikes.shape)
+    frames, _ = make_frame(labels, None, spikes, cap_in)    # [T, 12, 64]
+
+    def run_stream_engine():
+        return ops.fused_exchange_stream(
+            frames.labels, frames.valid, router.fwd_tables,
+            router.rev_tables, router.route_enables, capacity=cfg.capacity)
+
+    def run_loop():
+        return [agg.route_step(router, type(frames)(*(x[t] for x in frames)),
+                               cfg.capacity) for t in range(STEPS)]
+
+    run_stream_engine(), run_loop()                         # warm-up
+    torch.cuda.synchronize()
+    ops.fused_exchange_stream.launches = 0
+    t0 = time.perf_counter()
+    out_l, out_v, dropped = run_stream_engine()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    if ops.fused_exchange_stream.launches != 1:
+        raise AssertionError(f"stream: {ops.fused_exchange_stream.launches} "
+                             f"exchange_stream launches, expected 1")
+    launches["exchange_stream"] += ops.fused_exchange_stream.launches
+    ops.fused_exchange.launches = 0
+    t0 = time.perf_counter()
+    loop = run_loop()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if ops.fused_exchange.launches != STEPS:
+        raise AssertionError(f"route_step loop: {ops.fused_exchange.launches}"
+                             f" exchange launches, expected {STEPS}")
+    launches["exchange"] += ops.fused_exchange.launches
+    for name, a, b in (
+            ("labels", out_l, torch.stack([f.labels for f, _ in loop])),
+            ("valid", out_v, torch.stack([f.valid for f, _ in loop])),
+            ("dropped", dropped, torch.stack([d for _, d in loop]))):
+        parity.assert_equal(f"stream vs route_step loop {name}", b, a)
+    if any(bool(f.times.any()) for f, _ in loop):
+        raise AssertionError("route_step: untimed ingress carries times")
+    print(f"phase 7: FULL_BACKPLANE stream: {STEPS} steps of {cfg.n_chips} x "
+          f"{cap_in} egress frames ({int(frames.valid.sum())} events, "
+          f"occupancy {OCC}) -> {int(out_v.sum())} delivered, "
+          f"{int(dropped.sum())} dropped; one fused_exchange_stream launch "
+          f"{stream_s / STEPS * 1e6:.1f} us/step, {STEPS} route_step calls "
+          f"{loop_s / STEPS * 1e6:.1f} us/step; equal bit for bit [{gpu}]",
+          flush=True)
+
+    # The Node-FPGA egress stage on a phase-3-sized run's rasters.
+    name = "PROJECTED_120CHIP"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    state = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
+                         generator=torch.Generator(device=DEV).manual_seed(3),
+                         device=DEV) < DRIVE_P).to(torch.float32)
+    out = stream.run_stream(params, state, drives, cfg, fabric=plan,
+                            timed=True, device=DEV)
+    grid = stream.egress_label_grid(cfg, DEV)
+    table = params.router.fwd_tables[0]
+    rasters = [out.spikes[t].transpose(0, 1) > 0.5 for t in range(STEPS)]
+    ops.route_and_pack(grid.expand(rasters[0].shape), rasters[0], table,
+                       capacity=EGRESS_CAP)                  # warm-up
+    torch.cuda.synchronize()
+    ops.route_and_pack.launches = 0
+    t0 = time.perf_counter()
+    egress = [ops.route_and_pack(grid.expand(r.shape), r, table,
+                                 capacity=EGRESS_CAP) for r in rasters]
+    torch.cuda.synchronize()
+    egress_s = time.perf_counter() - t0
+    if ops.route_and_pack.launches != STEPS:
+        raise AssertionError(f"egress: {ops.route_and_pack.launches} "
+                             f"spike_router launches, expected {STEPS}")
+    launches["spike_router"] += ops.route_and_pack.launches
+    events = kept = dropped = 0
+    for t, (r, got) in enumerate(zip(rasters, egress)):
+        want = ref.spike_router_ref(grid.expand(r.shape), r, table,
+                                    capacity=EGRESS_CAP)
+        for field, a, b in zip(("labels", "valid", "dropped"), want, got):
+            parity.assert_equal(f"egress step {t} {field}", a, b)
+        events += int(r.sum())
+        kept += int(got[1].sum())
+        dropped += int(got[2].sum())
+    if not kept:
+        raise AssertionError("egress: no events kept")
+    print(f"phase 7: {name} egress stage: {STEPS} steps of {BATCH} x "
+          f"{cfg.n_chips} x {cfg.chip.n_neurons} spike rasters "
+          f"({events} spikes, occupancy {events / out.spikes.numel():.4f}) "
+          f"-> cap_in {EGRESS_CAP}: {kept} kept, {dropped} dropped, "
+          f"{events - kept - dropped} disabled (chips >= 64 under the "
+          f"identity LUT); {egress_s / STEPS * 1e6:.1f} us/step as called; "
+          f"equal to the plain version bit for bit [{gpu}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the LIF path
+# ---------------------------------------------------------------------------
+
+
+def phase8(launches: dict, gpu: str) -> None:
+    shape = (LIF_BATCH * LIF_CHIPS, 512)
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    v = torch.zeros(shape, device=DEV)
+    i = torch.zeros(shape, device=DEV)
+    drives = [0.6 * torch.rand(shape, generator=gen, device=DEV)
+              for _ in range(STEPS)]
+    lif_ops.lif_step.launches = 0
+    err, flips, spikes = 0.0, 0, 0
+    t0 = time.perf_counter()
+    for t, d in enumerate(drives):
+        # Teacher forcing: both sides start from the plain trajectory.
+        e, f, (v, i, s) = lif_check(f"step {t}", v, i, d)
+        err, flips, spikes = max(err, e), flips + f, spikes + int(s.sum())
+    wall = time.perf_counter() - t0
+    if lif_ops.lif_step.launches != STEPS:
+        raise AssertionError(f"LIF path: {lif_ops.lif_step.launches} "
+                             f"lif_step launches, expected {STEPS}")
+    launches["lif_step"] += lif_ops.lif_step.launches
+    if not spikes:
+        raise AssertionError("LIF path: no spikes")
+    print(f"phase 8: lif_step, {STEPS} steps at {LIF_BATCH} x {LIF_CHIPS} "
+          f"chips x 512 neurons, teacher-forced: max abs err {err:.3g} "
+          f"(tolerance {LIF_TOL}), {flips} near-threshold spike flips, "
+          f"{spikes} spikes (rate {spikes / (STEPS * v.numel()):.4f}); "
+          f"{wall:.2f} s with the checks [{gpu}]", flush=True)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -847,12 +1236,15 @@ def main() -> None:
 
     results: dict = {}
     phase2(results)
+    phase2_interconnect(results)
     phase2_lm(results)
     launches = {k: 0 for k in KERNEL_SOURCES}
     phase3(launches, gpu)
     phase4()
     phase5(launches, gpu)
     phase6()
+    phase7(launches, gpu)
+    phase8(launches, gpu)
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

@@ -65,6 +65,16 @@ def network_params_from_numpy(arrays: dict[str, np.ndarray], device=None
                            route_enables=t["router.route_enables"]))
 
 
+def router_state_from_numpy(arrays: dict[str, np.ndarray], device=None
+                            ) -> RouterState:
+    """A standalone ``RouterState`` from the JAX one flattened to
+    ``{"fwd_tables", "rev_tables", "route_enables"}``."""
+    t = _tensors(arrays, {k.removeprefix("router."): dtype for k, dtype
+                          in PARAM_KEYS.items() if k.startswith("router.")},
+                 device)
+    return RouterState(**t)
+
+
 def network_state_from_numpy(arrays: dict[str, np.ndarray], device=None
                              ) -> NetworkState:
     t = _tensors(arrays, STATE_KEYS, device)

@@ -7,7 +7,8 @@ frame in arrival order; overflow beyond ``capacity`` is dropped and counted
 (the paper's lossy layer-1 semantics), and invalid slots are zero-filled.
 
 Labels and timestamps are int32 and wire words int16 throughout; torch's
-int64 defaults never reach a returned tensor.
+int64 defaults never reach a returned tensor.  On the layer-2 link up to
+three events share one word and an 8-bit timestamp tag (``pack_words``).
 """
 
 from __future__ import annotations
@@ -16,8 +17,16 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
+
 LABEL_DTYPE = torch.int32
 TIME_DTYPE = torch.int32
+
+# Layer-2 packing factor: up to three spikes per link word (paper §III).
+SPIKES_PER_WORD = 3
+# Layer-2 timestamps carry the lower eight bits of the system time.
+TIMESTAMP_BITS = 8
+TIMESTAMP_MASK = (1 << TIMESTAMP_BITS) - 1
 
 
 class EventFrame(NamedTuple):
@@ -39,7 +48,8 @@ class EventFrame(NamedTuple):
 
 
 def empty_frame(capacity: int, batch_shape: tuple[int, ...] = (), *,
-                device="cpu") -> EventFrame:
+                device=None) -> EventFrame:
+    device = resolve_device(device)
     shape = (*batch_shape, capacity)
     return EventFrame(
         labels=torch.zeros(shape, dtype=LABEL_DTYPE, device=device),
@@ -155,6 +165,49 @@ def make_frame_segmented(labels: torch.Tensor, times: torch.Tensor | None,
     return frame, (total - kept).reshape(lead)
 
 
+def make_frame_argsort(labels: torch.Tensor, times: torch.Tensor,
+                       valid: torch.Tensor, capacity: int
+                       ) -> tuple[EventFrame, torch.Tensor]:
+    """The seed's stable-argsort compaction, kept as the baseline that pins
+    ``make_frame``'s semantics.
+
+    Equal to ``make_frame`` on (labels·valid, times·valid, valid, dropped);
+    invalid slots carry the reference's sorted garbage (the invalid events
+    in arrival order) rather than zeros.
+    """
+    labels = labels.to(LABEL_DTYPE)
+    times = times.to(TIME_DTYPE)
+    valid = valid.to(torch.bool)
+    # Stable order on an integer key (0 = valid): valid events first, each
+    # group in arrival order.
+    order = torch.argsort((~valid).to(torch.int32), dim=-1, stable=True)
+    labels = torch.gather(labels, -1, order)
+    times = torch.gather(times, -1, order)
+    valid = torch.gather(valid, -1, order)
+    n = labels.shape[-1]
+    total = valid.sum(dim=-1, dtype=torch.int32)
+    if n >= capacity:
+        frame = EventFrame(labels=labels[..., :capacity],
+                           times=times[..., :capacity],
+                           valid=valid[..., :capacity])
+        return frame, total - frame.valid.sum(dim=-1, dtype=torch.int32)
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((*x.shape[:-1], capacity - n))], -1)
+
+    return (EventFrame(labels=pad(labels), times=pad(times), valid=pad(valid)),
+            torch.zeros_like(total))
+
+
+def concatenate_frames(frames: list[EventFrame], capacity: int
+                       ) -> tuple[EventFrame, torch.Tensor]:
+    """Merge several frames into one capacity-bounded frame (drops
+    overflow)."""
+    return make_frame(torch.cat([f.labels for f in frames], dim=-1),
+                      torch.cat([f.times for f in frames], dim=-1),
+                      torch.cat([f.valid for f in frames], dim=-1), capacity)
+
+
 # ---------------------------------------------------------------------------
 # 16-bit wire format (one int16 word per on-wire event slot)
 # ---------------------------------------------------------------------------
@@ -179,3 +232,74 @@ def unpack_wire16(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode int16 wire words into (int32 15-bit labels, bool validity)."""
     w = words.to(torch.int32) & 0xFFFF
     return w & WIRE_PAYLOAD_MASK, (w >> WIRE_VALID_BIT) == 1
+
+
+# ---------------------------------------------------------------------------
+# Layer-2 word packing (≤3 spikes per word + shared 8-bit timestamp tag)
+# ---------------------------------------------------------------------------
+
+
+class PackedWords(NamedTuple):
+    """Layer-2 packed representation: groups of up to three events per
+    word."""
+
+    labels: torch.Tensor  # int32[..., n_words, SPIKES_PER_WORD]
+    times: torch.Tensor   # int32[..., n_words]  (lower 8 bits of system time)
+    valid: torch.Tensor   # bool[..., n_words, SPIKES_PER_WORD]
+
+
+def pack_words(frame: EventFrame) -> PackedWords:
+    """Pack an event frame into layer-2 words (3 spikes/word).
+
+    The word timestamp is the tag of its first *valid* slot (frames are
+    already time-ordered); a word with no valid slot carries tag 0.
+    """
+    cap = frame.capacity
+    n_words = -(-cap // SPIKES_PER_WORD)
+    pad = n_words * SPIKES_PER_WORD - cap
+    shape = (*frame.labels.shape[:-1], n_words, SPIKES_PER_WORD)
+
+    def words(x):
+        x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], dim=-1)
+        return x.reshape(shape)
+
+    labels, times, valid = (words(x) for x in frame)
+    # argmax returns the first maximum; it takes no bool, so cast first.
+    first_valid = torch.argmax(valid.to(torch.int32), dim=-1, keepdim=True)
+    first_time = torch.gather(times, -1, first_valid)[..., 0]
+    word_time = torch.where(valid.any(dim=-1), first_time & TIMESTAMP_MASK,
+                            torch.zeros_like(first_time))
+    return PackedWords(labels=labels, times=word_time, valid=valid)
+
+
+def unpack_words(words: PackedWords, base_time: int = 0,
+                 capacity: int | None = None) -> EventFrame:
+    """Unpack layer-2 words back into single events.
+
+    ``base_time`` supplies the upper timestamp bits (the receiving FPGA's
+    system time).  ``capacity`` restores the capacity of the frame that was
+    packed (``pack_words`` pads it to whole words); ``None`` keeps every
+    slot.
+    """
+    lead = words.labels.shape[:-2]
+    cap = words.labels.shape[-2] * SPIKES_PER_WORD
+    labels = words.labels.reshape(*lead, cap)
+    valid = words.valid.reshape(*lead, cap)
+    upper = int(base_time) & ~TIMESTAMP_MASK
+    times = (words.times[..., None] + upper).to(TIME_DTYPE) \
+        .expand(words.labels.shape).reshape(*lead, cap)
+    if capacity is not None:
+        if not cap - SPIKES_PER_WORD < capacity <= cap:
+            raise ValueError(
+                f"capacity {capacity} does not match "
+                f"{words.labels.shape[-2]} packed words ({cap} slots)")
+        labels = labels[..., :capacity]
+        times = times[..., :capacity]
+        valid = valid[..., :capacity]
+    return EventFrame(labels=labels, times=times, valid=valid)
+
+
+def words_required(n_events):
+    """Number of layer-2 words needed for ``n_events`` spikes (ceil div
+    3); an int or an integer tensor."""
+    return -(-n_events // SPIKES_PER_WORD)

@@ -14,8 +14,9 @@
 //
 // Design: the grid is (n_dst, batch), one launch per exchange step for all
 // batch rows (the reference reaches this kernel under a vmap over them).
-// Each 256-thread block walks the n_src * cap_in merge stream of its
-// (batch row, destination) in tiles, ranks the gated events with a warp
+// Each 256-thread block runs exchange_round (pack.cuh, shared with the
+// exchange_stream kernel) on its (batch row, destination): it walks the
+// n_src * cap_in merge stream in tiles, ranks the gated events with a warp
 // ballot, carries the rank across tiles, and scatters kept events straight
 // to their slot through d's rev LUT.  The 256 KiB fwd tables and the rev
 // tables are read through the read-only cache, not staged: a block touches
@@ -38,35 +39,12 @@ exchange_kernel(const int32_t* __restrict__ labels,
   __shared__ int warp_counts[kWarps];
   const int d = blockIdx.x;
   const int64_t b = blockIdx.y;
-  const int n = n_src * cap_in;
-  const int64_t in = b * n;
+  const int64_t in = b * n_src * cap_in;
   const int64_t row = b * n_dst + d;
-  const int64_t out = row * capacity;
-  const int32_t* table = rev + static_cast<int64_t>(d) * kRevTableSize;
-  int offset = 0;  // events ranked in earlier tiles (same in every thread)
-  for (int base = 0; base < n; base += kThreads) {
-    const int e = base + threadIdx.x;
-    bool ok = false;
-    int wire = 0;
-    if (e < n) {
-      const int s = e / cap_in;
-      if (valid[in + e] && enables[s * n_dst + d]) {
-        const int entry = __ldg(fwd + static_cast<int64_t>(s) * kFwdTableSize +
-                                (labels[in + e] & kChipMask));
-        ok = (entry >> kFwdEnableBit) & 1;
-        wire = entry & kWireMask;
-      }
-    }
-    int tile_total;
-    const int pos = offset + block_rank(ok, warp_counts, &tile_total);
-    if (ok && pos < capacity)
-      emit<false>(pos, wire, 0, table, Queue{0, 0, 0}, out_l + out,
-                  out_v + out, nullptr);
-    offset += tile_total;
-  }
-  const int kept = min(offset, capacity);
-  zero_tail<false>(kept, capacity, out_l + out, out_v + out, nullptr);
-  if (threadIdx.x == 0) dropped[row] = offset - kept;
+  exchange_round(labels + in, valid + in, fwd,
+                 rev + static_cast<int64_t>(d) * kRevTableSize, enables + d,
+                 n_dst, n_src, cap_in, capacity, out_l + row * capacity,
+                 out_v + row * capacity, dropped + row, warp_counts);
 }
 
 }  // namespace spike_router

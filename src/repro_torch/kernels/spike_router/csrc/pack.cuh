@@ -1,7 +1,9 @@
 // Shared pieces of the spike-router kernels: the bit layout of the LUT
 // entries and wire words (owned by repro_torch.core.routing and
-// repro_torch.core.events), the block-wide rank of 0/1 flags, and the
-// scatter tail that applies the rev LUT and the timed lane's queue.
+// repro_torch.core.events), the block-wide rank of 0/1 flags, the scatter
+// tail that applies the rev LUT and the timed lane's queue, and the body of
+// one full exchange round that the exchange and exchange_stream kernels
+// share.
 #pragma once
 
 #include <cstdint>
@@ -82,6 +84,50 @@ __device__ __forceinline__ void zero_tail(int kept, int capacity,
     out_v[s] = 0;
     if (kTimed) out_t[s] = 0;
   }
+}
+
+// One full exchange round of one frame for one destination: every source's
+// egress frame goes through that source's fwd LUT (bit 15 enables, bits
+// 0..14 are the wire label), is gated by the destination's route enable,
+// merged source-major (arrival order), packed to `capacity` with overflow
+// counted in *dropped, and decoded by the destination's rev LUT `rev`.
+//
+// labels, valid: the frame [n_src, cap_in]; fwd: int32 [n_src, 2^16];
+// en_col: the destination's enable column, entry s at en_col[s * en_stride]
+// (global memory or shared); out_l, out_v: the destination's [capacity]
+// output row.  The block walks the n_src * cap_in merge stream in tiles,
+// ranks the gated events with block_rank and carries the rank across
+// tiles.  Every thread of the block must call it.
+__device__ __forceinline__ void exchange_round(
+    const int32_t* __restrict__ labels, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ fwd, const int32_t* __restrict__ rev,
+    const uint8_t* en_col, int en_stride, int n_src, int cap_in, int capacity,
+    int32_t* __restrict__ out_l, uint8_t* __restrict__ out_v,
+    int32_t* __restrict__ dropped, int* warp_counts) {
+  const int n = n_src * cap_in;
+  int offset = 0;  // events ranked in earlier tiles (same in every thread)
+  for (int base = 0; base < n; base += kThreads) {
+    const int e = base + threadIdx.x;
+    bool ok = false;
+    int wire = 0;
+    if (e < n) {
+      const int s = e / cap_in;
+      if (valid[e] && en_col[s * en_stride]) {
+        const int entry = __ldg(fwd + static_cast<int64_t>(s) * kFwdTableSize +
+                                (labels[e] & kChipMask));
+        ok = (entry >> kFwdEnableBit) & 1;
+        wire = entry & kWireMask;
+      }
+    }
+    int tile_total;
+    const int pos = offset + block_rank(ok, warp_counts, &tile_total);
+    if (ok && pos < capacity)
+      emit<false>(pos, wire, 0, rev, Queue{0, 0, 0}, out_l, out_v, nullptr);
+    offset += tile_total;
+  }
+  const int kept = min(offset, capacity);
+  zero_tail<false>(kept, capacity, out_l, out_v, nullptr);
+  if (threadIdx.x == 0) *dropped = offset - kept;
 }
 
 }  // namespace spike_router

@@ -1,12 +1,20 @@
 """Public wrappers of the exchange kernels.
 
-``fused_exchange``    one full round of a one-level star (fwd LUT → route
-                      enables → merge → pack → rev LUT) for every
-                      destination and batch row — the ``exchange`` kernel.
-``fused_merge_pack``  merge + pack + rev LUT for streams whose fwd LUT and
-                      route enables were already applied — the
-                      ``merge_pack`` kernel, the merge tail of every other
-                      exchange.
+``route_and_pack``         the Node-FPGA's egress stage: fwd LUT, enable bit
+                           and capacity pack per row — the ``spike_router``
+                           kernel.
+``fused_exchange``         one full round of a one-level star (fwd LUT →
+                           route enables → merge → pack → rev LUT) for every
+                           destination and batch row — the ``exchange``
+                           kernel.
+``fused_exchange_stream``  T such rounds in one launch, each destination's
+                           routing state resident across its T frames — the
+                           ``exchange_stream`` kernel, the streaming engine
+                           of the plain star.
+``fused_merge_pack``       merge + pack + rev LUT for streams whose fwd LUT
+                           and route enables were already applied — the
+                           ``merge_pack`` kernel, the merge tail of every
+                           other exchange.
 
 On CPU tensors each runs its plain version (``ref.py``); on CUDA tensors
 it launches its kernel and counts the launch in its ``launches`` attribute.
@@ -23,6 +31,64 @@ from repro_torch.kernels import INT, PTR, check, launcher, on_card, stream
 from repro_torch.kernels.spike_router import ref as _ref
 
 
+def route_and_pack(labels: torch.Tensor, valid: torch.Tensor,
+                   lut: torch.Tensor, *, capacity: int):
+    """Egress stage: fwd LUT + enable mask + capacity pack.
+
+    labels: int[..., n_events] chip labels (the LUT is indexed by
+    ``labels & 0xFFFF``); valid: bool[..., n_events]; lut: int32[2^16].
+
+    Returns (out_labels int32[..., capacity], out_valid bool[..., capacity],
+             dropped int32[...]).  Events whose LUT entry is disabled are
+    not routed and not counted as dropped.
+    """
+    if valid.shape != labels.shape:
+        raise ValueError(f"valid shape {tuple(valid.shape)} must match labels "
+                         f"shape {tuple(labels.shape)}")
+    if tuple(lut.shape) != (FWD_TABLE_SIZE,):
+        raise ValueError(f"lut must be [{FWD_TABLE_SIZE}], got "
+                         f"{tuple(lut.shape)}")
+    if not on_card(labels, valid, lut):
+        return _ref.spike_router_ref(labels, valid, lut, capacity=capacity)
+    *lead, n = labels.shape
+    rows = math.prod(lead)
+    labels = labels.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    lut = lut.to(torch.int32).contiguous()
+    dev = labels.device
+    out_l = torch.empty((*lead, capacity), dtype=torch.int32, device=dev)
+    out_v = torch.empty((*lead, capacity), dtype=torch.bool, device=dev)
+    dropped = torch.empty(lead, dtype=torch.int32, device=dev)
+    launch = launcher("spike_router", "spike_router_launch",
+                      (PTR,) * 3 + (INT,) * 3 + (PTR,) * 4)
+    check(launch(labels.data_ptr(), valid.data_ptr(), lut.data_ptr(), rows, n,
+                 capacity, out_l.data_ptr(), out_v.data_ptr(),
+                 dropped.data_ptr(), stream()),
+          "spike_router")
+    route_and_pack.launches += 1
+    return out_l, out_v, dropped
+
+
+route_and_pack.launches = 0
+
+
+def _check_round(labels, valid, fwd_luts, rev_luts, enables):
+    """Argument checks shared by the one-round and the streaming exchange."""
+    n_src = labels.shape[-2]
+    if valid.shape != labels.shape:
+        raise ValueError(f"valid shape {tuple(valid.shape)} must match labels "
+                         f"shape {tuple(labels.shape)}")
+    if tuple(fwd_luts.shape) != (n_src, FWD_TABLE_SIZE):
+        raise ValueError(f"fwd_luts must be [{n_src}, {FWD_TABLE_SIZE}], got "
+                         f"{tuple(fwd_luts.shape)}")
+    if rev_luts.dim() != 2 or rev_luts.shape[1] != REV_TABLE_SIZE:
+        raise ValueError(f"rev_luts must be [n_dst, {REV_TABLE_SIZE}], got "
+                         f"{tuple(rev_luts.shape)}")
+    if tuple(enables.shape) != (n_src, rev_luts.shape[0]):
+        raise ValueError(f"enables must be [{n_src}, {rev_luts.shape[0]}], "
+                         f"got {tuple(enables.shape)}")
+
+
 def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
                    fwd_luts: torch.Tensor, rev_luts: torch.Tensor,
                    enables: torch.Tensor, *, capacity: int):
@@ -35,20 +101,9 @@ def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
     Returns (out_labels int32[..., n_dst, capacity],
              out_valid bool[..., n_dst, capacity], dropped int32[..., n_dst]).
     """
+    _check_round(labels, valid, fwd_luts, rev_luts, enables)
     *lead, n_src, cap_in = labels.shape
     n_dst = rev_luts.shape[0]
-    if valid.shape != labels.shape:
-        raise ValueError(f"valid shape {tuple(valid.shape)} must match labels "
-                         f"shape {tuple(labels.shape)}")
-    if tuple(fwd_luts.shape) != (n_src, FWD_TABLE_SIZE):
-        raise ValueError(f"fwd_luts must be [{n_src}, {FWD_TABLE_SIZE}], got "
-                         f"{tuple(fwd_luts.shape)}")
-    if tuple(rev_luts.shape) != (n_dst, REV_TABLE_SIZE):
-        raise ValueError(f"rev_luts must be [n_dst, {REV_TABLE_SIZE}], got "
-                         f"{tuple(rev_luts.shape)}")
-    if tuple(enables.shape) != (n_src, n_dst):
-        raise ValueError(f"enables must be [{n_src}, {n_dst}], got "
-                         f"{tuple(enables.shape)}")
     if not on_card(labels, valid, fwd_luts, rev_luts, enables):
         return _ref.exchange_ref(labels, valid, fwd_luts, rev_luts, enables,
                                  capacity=capacity)
@@ -74,6 +129,62 @@ def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
 
 
 fused_exchange.launches = 0
+
+
+def steps_per_block(n_steps: int, n_dst: int, device: torch.device) -> int:
+    """Timesteps one ``exchange_stream`` block walks: as many as keep about
+    two blocks per SM in the (n_dst, ceil(T / steps)) grid."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n_steps, -(-n_steps * n_dst // (2 * sms))))
+
+
+def fused_exchange_stream(labels: torch.Tensor, valid: torch.Tensor,
+                          fwd_luts: torch.Tensor, rev_luts: torch.Tensor,
+                          enables: torch.Tensor, *, capacity: int):
+    """T full exchange rounds of the plain star in one launch.
+
+    labels, valid: [T, n_src, cap_in] per-timestep egress frames;
+    fwd_luts: int32[n_src, 2^16]; rev_luts: int32[n_dst, 2^15];
+    enables: bool[n_src, n_dst], static over the stream (routing tables are
+    configuration, not data).  Equal, bit for bit, to T ``fused_exchange``
+    rounds.
+
+    Returns (out_labels int32[T, n_dst, capacity],
+             out_valid bool[T, n_dst, capacity], dropped int32[T, n_dst]).
+    """
+    if labels.dim() != 3:
+        raise ValueError(f"labels must be [T, n_src, cap_in], got "
+                         f"{tuple(labels.shape)}")
+    _check_round(labels, valid, fwd_luts, rev_luts, enables)
+    n_steps, n_src, cap_in = labels.shape
+    n_dst = rev_luts.shape[0]
+    if not on_card(labels, valid, fwd_luts, rev_luts, enables):
+        return _ref.exchange_stream_ref(labels, valid, fwd_luts, rev_luts,
+                                        enables, capacity=capacity)
+    labels = labels.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    fwd_luts = fwd_luts.to(torch.int32).contiguous()
+    rev_luts = rev_luts.to(torch.int32).contiguous()
+    enables = enables.to(torch.bool).contiguous()
+    dev = labels.device
+    out_l = torch.empty((n_steps, n_dst, capacity), dtype=torch.int32,
+                        device=dev)
+    out_v = torch.empty((n_steps, n_dst, capacity), dtype=torch.bool,
+                        device=dev)
+    dropped = torch.empty((n_steps, n_dst), dtype=torch.int32, device=dev)
+    launch = launcher("exchange_stream", "exchange_stream_launch",
+                      (PTR,) * 5 + (INT,) * 6 + (PTR,) * 4)
+    check(launch(labels.data_ptr(), valid.data_ptr(), fwd_luts.data_ptr(),
+                 rev_luts.data_ptr(), enables.data_ptr(), n_steps, n_src,
+                 cap_in, n_dst, capacity,
+                 steps_per_block(n_steps, n_dst, dev), out_l.data_ptr(),
+                 out_v.data_ptr(), dropped.data_ptr(), stream()),
+          "exchange_stream")
+    fused_exchange_stream.launches += 1
+    return out_l, out_v, dropped
+
+
+fused_exchange_stream.launches = 0
 
 
 def fused_merge_pack(labels: torch.Tensor, valid: torch.Tensor,

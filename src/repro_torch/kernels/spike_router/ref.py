@@ -23,6 +23,21 @@ def dest_queue_ns(capacity: int, queue: tuple[int, int, int],
                                        device=device), queue)
 
 
+def spike_router_ref(labels, valid, lut, *, capacity: int):
+    """The egress stage, matching the ``spike_router`` kernel: fwd LUT
+    (indexed by ``labels & 0xFFFF``), enable bit, capacity pack.
+
+    labels, valid: [..., n_events]; lut: int32[2^16].
+    Returns (out_labels int32[..., capacity], out_valid bool[..., capacity],
+             dropped int32[...]); disabled events are neither kept nor
+    counted as dropped.
+    """
+    wire, enabled = lookup_fwd(lut, labels)
+    frame, dropped = make_frame(wire, None, valid.to(torch.bool) & enabled,
+                                capacity)
+    return frame.labels, frame.valid, dropped
+
+
 def exchange_ref(labels, valid, fwd_luts, rev_luts, enables, *,
                  capacity: int):
     """One exchange round, matching the ``exchange`` kernel.
@@ -45,6 +60,19 @@ def exchange_ref(labels, valid, fwd_luts, rev_luts, enables, *,
     out_valid = frame.valid & rev_en
     return (torch.where(out_valid, chip, torch.zeros_like(chip)), out_valid,
             dropped)
+
+
+def exchange_stream_ref(labels, valid, fwd_luts, rev_luts, enables, *,
+                        capacity: int):
+    """T exchange rounds, matching the ``exchange_stream`` kernel:
+    ``exchange_ref`` with the timestep as its leading dim.
+
+    labels, valid: [T, n_src, cap_in].
+    Returns (out_labels int32[T, n_dst, capacity],
+             out_valid bool[T, n_dst, capacity], dropped int32[T, n_dst]).
+    """
+    return exchange_ref(labels, valid, fwd_luts, rev_luts, enables,
+                        capacity=capacity)
 
 
 def merge_pack_ref(labels, valid, rev_lut, *, capacity: int,

@@ -74,7 +74,8 @@ def init_feedforward(cfg: NetworkConfig, *, seed: int = 0,
     gen = torch.Generator().manual_seed(seed)
     chips = chiplib.init_params(cfg.n_chips, cfg.chip, gen)
     router = agg.identity_router(
-        cfg.n_chips, rt.feedforward_route_enables(cfg.n_chips))
+        cfg.n_chips, rt.feedforward_route_enables(cfg.n_chips, device=device),
+        device=device)
     params = NetworkParams(chips=chips,
                            row_of_label=_feedforward_row_map(cfg.n_chips,
                                                              cfg.chip.n_rows),

@@ -118,23 +118,24 @@ def test_routing_tables_and_lookups_match():
     en = rng.random(300) < 0.8
     _eq("fwd", jrt.build_fwd_table(jnp.asarray(chip), jnp.asarray(wire),
                                    jnp.asarray(en)),
-        trt.build_fwd_table(chip, wire, en))
+        trt.build_fwd_table(chip, wire, en, device="cpu"))
     wire_u = rng.permutation(1 << 15)[:300].astype(np.int32)
     rev_ref = jrt.build_rev_table(jnp.asarray(wire_u), jnp.asarray(chip),
                                   jnp.asarray(en))
-    rev_got = trt.build_rev_table(wire_u, chip, en)
+    rev_got = trt.build_rev_table(wire_u, chip, en, device="cpu")
     _eq("rev", rev_ref, rev_got)
     ids = jrt.identity_tables(1000)
-    ids_got = trt.identity_tables(1000)
+    ids_got = trt.identity_tables(1000, device="cpu")
     _eq("identity fwd", ids.fwd, ids_got[0])
     _eq("identity rev", ids.rev, ids_got[1])
     labels = rng.integers(0, 1 << 16, (5, 7)).astype(np.int32)
     for r, g in zip(jrt.lookup_rev(rev_ref, jnp.asarray(labels)),
                     trt.lookup_rev(rev_got, torch.from_numpy(labels))):
         _eq("lookup_rev", r, g)
-    _eq("full enables", jrt.full_route_enables(6), trt.full_route_enables(6))
+    _eq("full enables", jrt.full_route_enables(6),
+        trt.full_route_enables(6, device="cpu"))
     _eq("feedforward enables", jrt.feedforward_route_enables(6),
-        trt.feedforward_route_enables(6))
+        trt.feedforward_route_enables(6, device="cpu"))
 
 
 @pytest.mark.parametrize("level", ["chip", "fpga"])
