@@ -65,6 +65,27 @@ def launcher(stem: str, fn: str, argtypes: tuple):
     return f
 
 
+ROW_ALIGN = 16                   # bytes: the TMA and cp.async granule
+
+
+def check_row_layout(t: torch.Tensor, name: str) -> None:
+    """The tensor-core bodies copy rows in 16-byte pieces (TMA, cp.async):
+    ``t``'s last dim must be contiguous, every other stride of a dim longer
+    than 1 must span a multiple of 16 bytes (0 included), and the base must
+    be 16-byte aligned.  Raises otherwise; nothing is copied to make a
+    tensor fit."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name} needs its last dim contiguous, got strides "
+                         f"{t.stride()}")
+    if any((stride * t.element_size()) % ROW_ALIGN
+           for size, stride in zip(t.shape[:-1], t.stride()[:-1])
+           if size > 1):
+        raise ValueError(f"{name} needs strides spanning multiples of "
+                         f"{ROW_ALIGN} bytes, got {t.stride()}")
+    if t.data_ptr() % ROW_ALIGN:
+        raise ValueError(f"{name} needs a {ROW_ALIGN}-byte aligned base")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

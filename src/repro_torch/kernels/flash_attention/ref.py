@@ -34,3 +34,48 @@ def attention_ref(q, k, v, *, sm_scale: float | None = None,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+NEG_INF = -1e30                  # the TPU kernel's masked score
+
+
+def attention_blocked_ref(q, k, v, *, block_kv: int = 128, causal: bool = True,
+                          sm_scale: float | None = None):
+    """The Pallas body's online softmax over KV blocks of ``block_kv`` keys,
+    with P rounded to ``v.dtype`` before P·V: the plain twin of the wgmma
+    body.
+
+    Per block: scores times sm_scale in float32, masked (keys at or past
+    seq_kv, and after the query if causal) to -1e30; the running max m, the
+    normalizer l (summed from the unrounded P) and the accumulator with the
+    TPU kernel's guards for fully masked rows; acc / (l == 0 ? 1 : l) in
+    q's dtype.  Causal requires seq_q == seq_kv, as the kernel does.
+    """
+    _, q_heads, seq_q, d = q.shape
+    kv_heads, seq_kv = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    group = q_heads // kv_heads
+    q32 = q.float()
+    q_pos = torch.arange(seq_q, device=q.device)[:, None]
+    m = torch.full((*q.shape[:3], 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device)
+    for kv0 in range(0, seq_kv, block_kv):
+        kb = k[:, :, kv0:kv0 + block_kv].repeat_interleave(group, dim=1)
+        vb = v[:, :, kv0:kv0 + block_kv].repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kb.float()) * sm_scale
+        if causal:
+            kv_pos = kv0 + torch.arange(kb.shape[2], device=q.device)[None]
+            mask = kv_pos <= q_pos
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - torch.where(m_new <= NEG_INF / 2, 0.0, m_new))
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_new))
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vb.float())
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)

@@ -2,7 +2,19 @@
 
 ``linear_scan`` runs the plain chunked version (``ref.linear_scan_chunked``
 at the kernel's chunk) on CPU tensors and launches ``csrc/linear_scan.cu``
-on CUDA tensors, counting each launch in its ``launches`` attribute.
+on CUDA tensors.  The kernel has two bodies, picked by ``body_for``:
+
+* ``"scalar_decay"`` when w is constant over K by construction
+  (``w.stride(-1) == 0``, Mamba2's view), q, k and v are bf16, the mode is
+  ``inclusive`` and K and V are multiples of 16 (K at most 128): the chunk
+  form with one decay per step, its products on tensor cores (plain twin:
+  ``ref.linear_scan_scalar_decay_ref``);
+* ``"per_channel"`` for every other call: the per-channel chunk form on the
+  CUDA cores, `inclusive` and `bonus` modes.
+
+This is a dispatch by the operands, not a fallback: a scalar-decay call
+whose launch fails raises.  Each launch counts in ``linear_scan.launches``
+and in ``linear_scan.launches_by_path[body]``.
 """
 
 from __future__ import annotations
@@ -11,13 +23,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (INT, PTR, check, dtype_code, launcher,
-                                 on_card, stream)
+from repro_torch.kernels import (INT, PTR, check, check_row_layout,
+                                 dtype_code, launcher, on_card, stream)
 from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
 
 DEFAULT_CHUNK = 64
+SCALAR_CHUNK = 64                # the scalar-decay body's chunk
 MODES = ("inclusive", "bonus")
 SMEM_LIMIT = 232448              # dynamic shared memory a block may use (H100)
+MAX_SCALAR_K = 128               # the scalar-decay body's state rows
 
 
 def chunk_for(t: int, chunk: int = DEFAULT_CHUNK) -> int:
@@ -27,11 +41,22 @@ def chunk_for(t: int, chunk: int = DEFAULT_CHUNK) -> int:
 
 
 def smem_bytes(chunk: int, kdim: int, vdim: int) -> int:
-    """Dynamic shared memory of one block (csrc/linear_scan.cu): q and β
-    tiles, k and b tiles with rows padded by one word, the v tile, the
-    intra-chunk matrix, the state and the bonus diagonal, all f32."""
+    """Dynamic shared memory of one block of the per-channel body
+    (csrc/linear_scan.cu): q and β tiles, k and b tiles with rows padded by
+    one word, the v tile, the intra-chunk matrix, the state and the bonus
+    diagonal, all f32."""
     return 4 * (2 * chunk * kdim + 2 * chunk * (kdim + 1) + chunk * vdim
                 + chunk * chunk + kdim * vdim + chunk)
+
+
+def body_for(q, k, v, w, mode: str = "inclusive") -> str:
+    """The kernel body a call runs (see the module docstring)."""
+    kdim, vdim = q.shape[-1], v.shape[-1]
+    scalar = (w.stride(-1) == 0 and mode == "inclusive"
+              and q.dtype == k.dtype == v.dtype == torch.bfloat16
+              and kdim % 16 == 0 and vdim % 16 == 0
+              and 0 < kdim <= MAX_SCALAR_K)
+    return "scalar_decay" if scalar else "per_channel"
 
 
 def linear_scan(q, k, v, w, u=None, *, mode: str = "inclusive",
@@ -39,10 +64,13 @@ def linear_scan(q, k, v, w, u=None, *, mode: str = "inclusive",
     """Diagonal-decay linear recurrence over a full sequence.
 
     q, k, w: [batch, heads, T, K]; v: [batch, heads, T, V]; u: [heads, K]
-    (bonus mode only; zeros if omitted).  Any strides: the broadcast views
-    ``mamba2_forward`` builds (stride 0 over heads or over K) are read as
-    they are.  T is cut into chunks of ``chunk_for(T)`` steps; the steps past
-    T read as w = 0, k = 0.  Returns y [batch, heads, T, V] in q's dtype.
+    (bonus mode only; zeros if omitted).  The per-channel body takes any
+    strides: the broadcast views ``mamba2_forward`` builds (stride 0 over
+    heads or over K) are read as they are.  The scalar-decay body reads
+    them through their strides too, under ``check_row_layout``'s rule.
+    T is cut into chunks (``chunk_for(T)`` steps in the per-channel body,
+    64 in the scalar-decay body); the steps past T read as w = 0, k = 0.
+    Returns y [batch, heads, T, V] in q's dtype.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -59,28 +87,43 @@ def linear_scan(q, k, v, w, u=None, *, mode: str = "inclusive",
     if not on_card(q, k, v, w, u):
         return linear_scan_chunked(q, k, v, w, u, mode=mode,
                                    chunk=chunk).to(q.dtype)
-    smem = smem_bytes(chunk, kdim, vdim)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K={kdim}, V={vdim} at chunk {chunk} needs {smem} "
-                         f"bytes of shared memory, over {SMEM_LIMIT}")
+    body = body_for(q, k, v, w, mode)
+    if body == "scalar_decay":
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            check_row_layout(a, name)
+    else:
+        smem = smem_bytes(chunk, kdim, vdim)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"K={kdim}, V={vdim} at chunk {chunk} needs "
+                             f"{smem} bytes of shared memory, over "
+                             f"{SMEM_LIMIT}")
     y = torch.empty((batch, heads, t, vdim), dtype=q.dtype, device=q.device)
     if y.numel() == 0:
         return y
-    if mode == "bonus":
-        u = (torch.zeros((heads, kdim), device=q.device) if u is None
-             else u.to(torch.float32).contiguous())
     strides = (ctypes.c_int64 * 16)(*q.stride(), *k.stride(), *v.stride(),
                                     *w.stride())
-    launch = launcher("linear_scan", "linear_scan_launch",
-                      (PTR,) * 6 + (INT,) * 5 + (INT,) * 7 + (PTR, PTR))
-    check(launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr() if mode == "bonus" else None, y.data_ptr(),
-                 dtype_code(q), dtype_code(k), dtype_code(v), dtype_code(w),
-                 dtype_code(y), batch, heads, t, kdim, vdim, chunk,
-                 int(mode == "bonus"), strides, stream()),
-          "linear_scan")
+    if body == "scalar_decay":
+        launch = launcher("linear_scan", "linear_scan_scalar_decay_launch",
+                          (PTR,) * 5 + (INT,) * 6 + (PTR, PTR))
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                     y.data_ptr(), dtype_code(w), batch, heads, t, kdim, vdim,
+                     strides, stream())
+    else:
+        if mode == "bonus":
+            u = (torch.zeros((heads, kdim), device=q.device) if u is None
+                 else u.to(torch.float32).contiguous())
+        launch = launcher("linear_scan", "linear_scan_launch",
+                          (PTR,) * 6 + (INT,) * 5 + (INT,) * 7 + (PTR, PTR))
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                     u.data_ptr() if mode == "bonus" else None, y.data_ptr(),
+                     dtype_code(q), dtype_code(k), dtype_code(v),
+                     dtype_code(w), dtype_code(y), batch, heads, t, kdim,
+                     vdim, chunk, int(mode == "bonus"), strides, stream())
+    check(err, f"linear_scan ({body})")
     linear_scan.launches += 1
+    linear_scan.launches_by_path[body] += 1
     return y
 
 
 linear_scan.launches = 0
+linear_scan.launches_by_path = {"scalar_decay": 0, "per_channel": 0}

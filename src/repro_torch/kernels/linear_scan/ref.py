@@ -115,3 +115,43 @@ def linear_scan_decode_ref(h, q_t, k_t, v_t, w_t, u=None, *,
         h = torch.exp(w_t)[..., None] * h + kv
         y = torch.einsum("bhk,bhkv->bhv", q_t, h)
     return h, y
+
+
+def linear_scan_scalar_decay_ref(q, k, v, w, *, chunk: int = 64):
+    """The scalar-decay chunk form in ``inclusive`` mode: the plain twin of
+    the kernel's scalar-decay body.
+
+    w's first channel is the decay of every channel (Mamba2's w, constant
+    over K).  Within a chunk of ``chunk`` steps, b is the inclusive cumsum
+    of that scalar w and L[t, s] = e^{b_t − b_s} for s ≤ t (every exponent
+    ≤ 0);  y = e^{b_t}·(Q·h) + ((Q·Kᵀ) ⊙ L)·V and
+    h ← e^{b_C}·h + (K ⊙ e^{b_C − b_s})ᵀ·V, all in float32.  The same
+    function as ``linear_scan_chunked`` when w is constant over K.  Returns
+    y in v's dtype.
+    """
+    orig_dtype = v.dtype
+    q, k, v = (a.float() for a in (q, k, v))
+    w = w[..., 0].float()
+    batch, heads, t, kdim = q.shape
+    vdim = v.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
+        w = F.pad(w, (0, pad))
+    t_idx = torch.arange(chunk, device=q.device)
+    causal = t_idx[:, None] >= t_idx[None, :]
+    h = torch.zeros((batch, heads, kdim, vdim), device=q.device)
+    ys = []
+    for c0 in range(0, t + pad, chunk):
+        qc, kc, vc = (a[:, :, c0:c0 + chunk] for a in (q, k, v))
+        b = torch.cumsum(w[:, :, c0:c0 + chunk], dim=2)       # [B, H, C]
+        # Masked (s > t) exponents can overflow: clamp, exact for s ≤ t.
+        decay = torch.exp(torch.clamp(b[..., :, None] - b[..., None, :],
+                                      max=0.0))
+        a = torch.where(causal, (qc @ kc.transpose(-1, -2)) * decay, 0.0)
+        ys.append(torch.exp(b)[..., None] * (qc @ h) + a @ vc)
+        b_last = b[..., -1:]
+        h = torch.exp(b_last)[..., None] * h \
+            + (kc * torch.exp(b_last - b)[..., None]).transpose(-1, -2) @ vc
+    y = torch.cat(ys, dim=2)[:, :, :t]
+    return y.to(orig_dtype)

@@ -62,7 +62,9 @@ def init_params(n_chips: int, cfg: ChipConfig, generator: torch.Generator
 
 
 def init_state(cfg: ChipConfig, n_chips: int, batch: int, *,
-               device="cpu") -> ChipState:
+               device=None) -> ChipState:
+    """Resting state of ``n_chips`` chips, on the card unless ``device``
+    says otherwise."""
     return ChipState(neurons=nrn.init_state((n_chips, batch, cfg.n_neurons),
                                             cfg.neuron, device=device))
 

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class NeuronParams:
@@ -62,7 +64,9 @@ class NeuronState(NamedTuple):
 
 
 def init_state(shape: tuple[int, ...], params: NeuronParams = LIF, *,
-               device="cpu") -> NeuronState:
+               device=None) -> NeuronState:
+    """Resting state, on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     return NeuronState(
         v=torch.full(shape, params.v_leak, dtype=torch.float32, device=device),
         i_syn=torch.zeros(shape, dtype=torch.float32, device=device),

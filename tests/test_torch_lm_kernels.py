@@ -18,8 +18,10 @@ from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro.kernels.linear_scan import ref as jscan_ref
 from repro.kernels.linear_scan.ops import linear_scan as jscan
+from repro_torch.kernels import check_row_layout
 from repro_torch.kernels.flash_attention import ops as tflash
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_blocked_ref,
+                                                     attention_ref)
 from repro_torch.kernels.linear_scan import ops as tscan
 from repro_torch.kernels.linear_scan import ref as tscan_ref
 
@@ -88,6 +90,67 @@ def test_flash_attention_bf16_in_q_dtype():
     want = attention_ref(tq.float(), tk.float(), tv.float())
     # bf16 output: one rounding of an f32 result.
     torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=8e-3)
+
+
+# (batch, q_heads, kv_heads, seq, head_dim, causal): the Pallas wrapper's
+# block_kv is 128 from 128 keys on, so P rounds at the same boundaries.
+BLOCKED_SHAPES = [(1, 4, 2, 300, 112, True), (1, 2, 2, 256, 64, False),
+                  (2, 4, 4, 130, 16, True), (1, 2, 1, 200, 112, False)]
+
+
+@pytest.mark.parametrize("shape", BLOCKED_SHAPES)
+def test_attention_blocked_ref_matches_pallas(shape):
+    """The wgmma body's plain twin against the Pallas kernel in interpret
+    mode at block_kv = 128.  float32: P's cast to v's type is exact, so
+    within 1e-5.  bf16 inputs: the Pallas body casts v to float32 first, so
+    in interpret mode its P stays float32 while the twin rounds P to bf16 as
+    the card's tensor cores take it; each weight moves by at most half a
+    bf16 ulp (2^-8 of itself) and l sums the unrounded weights, so the
+    output moves by at most 2^-8·max|v|, beside one bf16 ulp of rounding
+    of each side's output (2^-7·|ref|)."""
+    b, hq, hkv, s, d, causal = shape
+    q, k, v = _qkv(np.random.default_rng(sum(shape[:5])), b, hq, hkv, s, s, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close("f32", attention_blocked_ref(*map(torch.from_numpy, (q, k, v)),
+                                        causal=causal),
+           jflash(jq, jk, jv, causal=causal, interpret=True))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = attention_blocked_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jflash(*(jnp.asarray(t.float().numpy())
+                               .astype(jnp.bfloat16) for t in (tq, tk, tv)),
+                             causal=causal, interpret=True)).astype(np.float32)
+    diff = np.abs(got.float().numpy() - want)
+    bound = 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * float(tv.float().abs().max())
+    assert np.isfinite(got.float().numpy()).all()
+    assert (diff <= bound).all(), float((diff - bound).max())
+
+
+def test_flash_attention_body_dispatch():
+    """The wrapper's rule: all-bf16 operands take the wgmma body, any other
+    mix the f32 body; the wgmma body's TMA layout rule raises for a
+    non-contiguous head dim, a stride off the 16-byte granule or a
+    misaligned base, and replaces the strides of size-1 dims."""
+    bf, f32 = torch.bfloat16, torch.float32
+    x = torch.zeros((1, 2, 8, 16))
+    assert tflash.body_for(x.to(bf), x.to(bf), x.to(bf)) == "wgmma"
+    for dtypes in ((f32, f32, f32), (bf, f32, bf), (bf, bf, f32)):
+        assert tflash.body_for(*(x.to(t) for t in dtypes)) == "f32"
+    assert tflash.block_kv_for(112) == 128 and tflash.block_kv_for(256) == 64
+    # zamba2's v: a transposed view [b, s, h, d] -> [b, h, s, d].
+    v = torch.zeros((2, 16, 4, 112), dtype=bf).transpose(1, 2)
+    assert tflash.tma_strides(v, "v") == (16 * 4 * 112, 112, 4 * 112, 1)
+    assert tflash.tma_strides(torch.zeros((1, 1, 8, 16), dtype=bf), "q") \
+        == (128, 128, 16, 1)
+    with pytest.raises(ValueError, match="last dim contiguous"):
+        tflash.tma_strides(torch.zeros((1, 2, 16, 8), dtype=bf)
+                           .transpose(2, 3), "k")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tflash.tma_strides(torch.zeros((1, 2, 8, 20), dtype=bf)[..., :16],
+                           "k")
+    with pytest.raises(ValueError, match="aligned"):
+        tflash.tma_strides(torch.zeros(1 + 2 * 8 * 16, dtype=bf)[1:]
+                           .reshape(1, 2, 8, 16), "k")
 
 
 def test_flash_attention_argument_rules():
@@ -171,6 +234,74 @@ def test_linear_scan_broadcast_views():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# (batch, heads, T, K, V, strongest decay per step): ragged T, several
+# chunks, decays down to e^-16 per step (zamba2's largest rate).
+SCALAR_SHAPES = [(1, 2, 150, 16, 16, 1.0), (2, 3, 100, 32, 16, 16.0),
+                 (1, 2, 5, 16, 8, 1.0), (1, 1, 200, 64, 64, 16.0)]
+
+
+@pytest.mark.parametrize("shape", SCALAR_SHAPES)
+def test_scalar_decay_ref_matches_jax(shape):
+    """The scalar-decay twin (one decay per step, taken from w's first
+    channel) against the per-channel chunked form on the same w broadcast
+    over K and against the Pallas kernel in interpret mode: the same
+    function, within 1e-5 of the output's scale in float32.  At decays up
+    to e^-16 per step the cumsum inside a 64-step chunk reaches |b| ~ 500,
+    where jnp.cumsum's association and torch.cumsum's differ by a few f32
+    ulps (3e-5 each): against Pallas the twin and the port's per-channel
+    chunked form then both sit about 1.6e-5 of the scale off, so that one
+    comparison is held to 5e-5 and to the chunked form's own distance."""
+    b, h, t, kd, vd, decay = shape
+    rng = np.random.default_rng(sum(shape[:5]))
+    q, k, v, _, _ = _scan_inputs(rng, b, h, t, kd, vd)
+    w1 = -rng.uniform(0.0, decay, (b, h, t, 1)).astype(np.float32)
+    w = np.ascontiguousarray(np.broadcast_to(w1, (b, h, t, kd)))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = tscan_ref.linear_scan_scalar_decay_ref(
+        tq, tk, tv, torch.from_numpy(w1).expand(b, h, t, kd))
+    assert got.dtype == torch.float32
+    chunked = tscan_ref.linear_scan_chunked(tq, tk, tv, torch.from_numpy(w),
+                                            chunk=tscan.SCALAR_CHUNK)
+    _close("vs linear_scan_chunked", got, chunked, rel=True)
+    pallas = np.asarray(jscan(*map(jnp.asarray, (q, k, v, w)),
+                              interpret=True))
+    scale = max(1.0, float(np.abs(pallas).max()))
+    err = float(np.abs(got.numpy() - pallas).max()) / scale
+    chunked_err = float(np.abs(chunked.numpy() - pallas).max()) / scale
+    assert err <= (TOL if decay <= 1.0 else 5e-5), err
+    assert err <= chunked_err + TOL / 10, (err, chunked_err)
+
+
+def test_linear_scan_body_dispatch():
+    """The wrapper's rule: the scalar-decay body takes bf16 q, k, v, a w
+    constant over K by construction (stride 0), inclusive mode and K, V
+    multiples of 16 (K up to 128); anything else takes the per-channel
+    body.  Its copy rule (``check_row_layout``, which the flash test
+    drives to each of its errors) takes Mamba2's operands."""
+    bf = torch.bfloat16
+    b, h, t, kd, vd = 1, 2, 8, 64, 32
+
+    def args(dtype=bf, kd=kd, vd=vd, w_stride0=True):
+        q = torch.zeros((b, 1, t, kd), dtype=dtype).expand(b, h, t, kd)
+        k = torch.zeros((b, h, t, kd), dtype=dtype)
+        v = torch.zeros((b, h, t, vd), dtype=dtype)
+        w = torch.zeros((b, h, t, 1))
+        w = w.expand(b, h, t, kd) if w_stride0 else w.repeat(1, 1, 1, kd)
+        return q, k, v, w
+
+    assert tscan.body_for(*args()) == "scalar_decay"
+    assert tscan.body_for(*args(), mode="bonus") == "per_channel"
+    assert tscan.body_for(*args(dtype=torch.float32)) == "per_channel"
+    assert tscan.body_for(*args(w_stride0=False)) == "per_channel"
+    assert tscan.body_for(*args(kd=40)) == "per_channel"
+    assert tscan.body_for(*args(vd=24)) == "per_channel"
+    assert tscan.body_for(*args(kd=144)) == "per_channel"
+    # Mamba2's q is a stride-0 view over heads: 0 is on the 16-byte rule.
+    q, k, v, _ = args()
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        check_row_layout(a, name)
+
+
 def test_linear_scan_decode_ref_matches_jax():
     rng = np.random.default_rng(12)
     b, h, kd, vd = 2, 3, 8, 6
@@ -223,31 +354,113 @@ def cuda_device():
     return torch.device("cuda")
 
 
+KERNEL_ATTN_SHAPES = ATTN_SHAPES + [(1, 8, 2, 130, 130, 128),
+                                   (1, 2, 2, 65, 65, 256),
+                                   (1, 2, 2, 190, 190, 192),
+                                   (1, 2, 1, 300, 300, 40)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", ATTN_SHAPES + [(1, 8, 2, 130, 130, 128),
-                                                 (1, 2, 2, 65, 65, 256)])
+@pytest.mark.parametrize("shape", KERNEL_ATTN_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, causal):
+    """The f32 body (float32 operands) against the plain version."""
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in
                _qkv(np.random.default_rng(sum(shape)), *shape))
-    before = tflash.flash_attention.launches
+    before = dict(tflash.flash_attention.launches_by_path)
     got = tflash.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert tflash.flash_attention.launches == before + 1
+    assert tflash.flash_attention.launches_by_path == \
+        {**before, "f32": before["f32"] + 1}
     # f32 sums in another order than the plain version's.
     torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal),
                                rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 2, 24, 56, 16),
+                                   (2, 4, 4, 300, 129, 112)])
+def test_flash_attention_wgmma_body_cross_lengths(cuda_device, shape):
+    """Non-causal, seq_q != seq_kv and an explicit sm_scale on the wgmma
+    body; tolerance as in the test below."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16)
+               for a in _qkv(np.random.default_rng(sum(shape)), *shape))
+    got = tflash.flash_attention(q, k, v, causal=False, sm_scale=0.3)
+    want = attention_blocked_ref(q, k, v, causal=False, sm_scale=0.3,
+                                 block_kv=tflash.block_kv_for(shape[-1]))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2.0 ** -8 * float(v.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", KERNEL_ATTN_SHAPES)
+def test_flash_attention_wgmma_body_matches_plain(cuda_device, shape, causal):
+    """The wgmma body (bf16 operands) against its blocked twin and the
+    plain version: one bf16 ulp of each output (2^-7·|ref|) and 2^-8·max|v|
+    for P's rounding to bf16 (the twin rounds P too, but a weight whose f32
+    value differs in the last bits between the two sides' sums may round
+    one ulp apart)."""
+    b, hq, hkv, sq, skv, d = shape
+    q, k, v = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16)
+               for a in _qkv(np.random.default_rng(sum(shape)), *shape))
+    before = dict(tflash.flash_attention.launches_by_path)
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches_by_path == \
+        {**before, "wgmma": before["wgmma"] + 1}
+    abs_tol = 2.0 ** -8 * float(v.float().abs().max())
+    for want in (attention_blocked_ref(q, k, v, causal=causal,
+                                       block_kv=tflash.block_kv_for(d)),
+                 attention_ref(q, k, v, causal=causal)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=abs_tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["inclusive", "bonus"])
 @pytest.mark.parametrize("shape", SCAN_SHAPES + [(2, 4, 200, 64, 64)])
 def test_linear_scan_kernel_matches_plain(cuda_device, shape, mode):
+    """The per-channel body (float32 operands) against the sequential
+    recurrence."""
     q, k, v, w, u = (torch.from_numpy(a).to(cuda_device) for a in
                      _scan_inputs(np.random.default_rng(sum(shape)), *shape))
     u = u if mode == "bonus" else None
+    before = dict(tscan.linear_scan.launches_by_path)
     got = tscan.linear_scan(q, k, v, w, u, mode=mode)
     want = tscan_ref.linear_scan_ref(q, k, v, w, u, mode=mode)
     torch.cuda.synchronize()
+    assert tscan.linear_scan.launches_by_path == \
+        {**before, "per_channel": before["per_channel"] + 1}
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(b, h, t, kd, vd) for b, h, t, kd, vd, _
+                                   in SCALAR_SHAPES if kd % 16 == 0
+                                   and vd % 16 == 0]
+                         + [(2, 4, 200, 128, 48), (1, 3, 77, 48, 32)])
+def test_linear_scan_scalar_decay_body_matches_plain(cuda_device, shape):
+    """The scalar-decay body (bf16 operands, w a stride-0 view over K)
+    against its twin and the per-channel chunked form: one bf16 ulp of the
+    output (2^-7·|ref|) and 1e-3 of the output's scale for TF32 products
+    and sums in another order."""
+    b, h, t, kd, vd = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, _, _ = _scan_inputs(rng, b, h, t, kd, vd)
+    w1 = -rng.uniform(0.0, 16.0, (b, h, t, 1)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16)
+               for a in (q, k, v))
+    w = torch.from_numpy(w1).to(cuda_device).expand(b, h, t, kd)
+    before = dict(tscan.linear_scan.launches_by_path)
+    got = tscan.linear_scan(q, k, v, w)
+    torch.cuda.synchronize()
+    assert tscan.linear_scan.launches_by_path == \
+        {**before, "scalar_decay": before["scalar_decay"] + 1}
+    for want in (tscan_ref.linear_scan_scalar_decay_ref(q, k, v, w),
+                 tscan_ref.linear_scan_chunked(q, k, v, w, chunk=64)):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-3 * scale)

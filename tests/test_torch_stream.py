@@ -388,3 +388,27 @@ def test_compare_streams_flip_rule():
     dropped[1, 0, 0] += 1
     with pytest.raises(AssertionError, match="dropped"):
         parity.compare_streams(ref, got._replace(dropped=dropped), near)
+
+
+def test_chip_and_neuron_init_state_default_to_the_card(monkeypatch):
+    """``snn.chip.init_state`` and ``snn.neuron.init_state`` raise without a
+    card unless given ``device="cpu"``, and then equal the JAX package's
+    resting state bit for bit."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ccfg = tchip.ChipConfig(**SMALL_CHIP)
+    for call in (lambda **kw: tchip.init_state(ccfg, 2, BATCH, **kw),
+                 lambda **kw: tnrn.init_state((BATCH, 64), **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    jcfg = jchip.ChipConfig(**SMALL_CHIP)
+    got = tchip.init_state(ccfg, 2, BATCH, device="cpu").neurons
+    want = jchip.init_state(jcfg, BATCH).neurons
+    for g, w in zip(got, want, strict=True):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        for c in range(2):
+            np.testing.assert_array_equal(g[c].numpy(), np.asarray(w))
+    got = tnrn.init_state((BATCH, 64), device="cpu")
+    want = jnrn.init_state((BATCH, 64))
+    for g, w in zip(got, want, strict=True):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
