@@ -18,7 +18,11 @@ Phases, each reported on its own lines:
    form, its per-channel body); device time per launch (CUDA-graph
    replay), the plain version's time, a library call's time where one
    computes the same function, and the bound.  The streaming exchange is also timed against
-   the exchange kernel run with batch = T on the same frames.
+   the exchange kernel run with batch = T on the same frames.  Every
+   exchange and merge_pack case names the body it ran and prints its
+   launch floor: the graph-replay time of an empty kernel with the same
+   grid, block and shared memory (``*_floor_launch`` in the kernels'
+   sources).
 3. The SNN main path at full width (512 neurons x 256 rows per chip, batch
    8, 64 steps): ``run_stream`` on FULL_BACKPLANE (untimed gather: the
    exchange kernel), EXT_4CASE_96CHIP (timed, gather and routed) and
@@ -85,7 +89,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregator as agg  # noqa: E402
 from repro_torch.core import fabric as fablib  # noqa: E402
 from repro_torch.core.events import make_frame  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import INT, PTR, _build, check  # noqa: E402
+from repro_torch.kernels import launcher  # noqa: E402
+from repro_torch.kernels import stream as cuda_stream  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_blocked_ref, attention_ref)
@@ -168,20 +174,23 @@ def card() -> str:
 
 def ptxas_usage(log: str) -> list[str]:
     """Per kernel function of an ``nvcc -Xptxas -v`` log: its name with
-    template arguments, registers, spilled bytes and any performance
-    warning (``scan_scalar_decay_kernel<4,64>: 167 regs, 0 B spilled``)."""
+    template arguments, registers, spilled bytes, static shared memory and
+    any performance warning (``scan_scalar_decay_kernel<4,64>: 167 regs,
+    0 B spilled, 0 B smem``; dynamic shared memory is the launch's)."""
     usage, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?([A-Za-z_]+kernel)"
-                      r"(I(?:Li\d+E)+E)?", ln)
+                      r"(I(?:L[ib]\d+E)+E)?", ln)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         elif name and "spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
         elif name and "Used" in ln and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            usage.append(f"{name}: {regs} regs, {spill} B spilled")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            usage.append(f"{name}: {regs} regs, {spill} B spilled, "
+                         f"{smem.group(1) if smem else 0} B smem")
             name = None
         elif "Performance" in ln:
             usage.append(ln.split(":", 1)[-1].strip()[:90])
@@ -309,6 +318,43 @@ def exchange_cost(labels, valid, enables, outs) -> tuple[int, int]:
     return nbytes, 10 * (labels.numel() * n_dst + outs[0].numel())
 
 
+def run_counted(fn, counts: dict):
+    """Runs ``fn`` (one wrapper call) and returns (its result, the body its
+    launch went through, from the wrapper's ``launches_by_path``)."""
+    before = dict(counts)
+    out = fn()
+    bodies = [k for k in counts if counts[k] != before[k]]
+    if len(bodies) != 1 or counts[bodies[0]] != before[bodies[0]] + 1:
+        raise AssertionError(f"expected one launch, bodies went {before} -> "
+                             f"{counts}")
+    return out, bodies[0]
+
+
+def merge_pack_floor_ms(rows: int, n: int, cap: int, timed: bool,
+                        body: str) -> float:
+    """The launch floor of a merge_pack call: graph replay of an empty
+    kernel with the grid, block and shared memory of ``body`` at
+    rows x n -> cap."""
+    launch = launcher("merge_pack", "merge_pack_floor_launch",
+                      (INT,) * 5 + (PTR,))
+    code = ops.MERGE_PACK_BODIES[body]
+    return graph_ms(lambda: check(launch(rows, n, cap, int(timed), code,
+                                         cuda_stream()),
+                                  "merge_pack floor"))
+
+
+def exchange_floor_ms(labels, n_dst: int, cap: int, body: str) -> float:
+    """The launch floor of an exchange call: graph replay of an empty
+    kernel with the grid, block and shared memory of ``body``."""
+    launch = launcher("exchange", "exchange_floor_launch",
+                      (INT,) * 6 + (PTR,))
+    batch, n_src, cap_in = labels.shape
+    code = ops.EXCHANGE_BODIES[body]
+    return graph_ms(lambda: check(launch(batch, n_src, cap_in, n_dst, cap,
+                                         code, cuda_stream()),
+                                  "exchange floor"))
+
+
 def phase2(results: dict) -> None:
     gen = torch.Generator(device=DEV).manual_seed(2)
     plans = {name: scenarios.engine_network(name, device="cpu")[::2]
@@ -346,7 +392,8 @@ def phase2(results: dict) -> None:
         kw["capacity"] = cap
         if not compact:
             kw["seg_lens"] = None if "global" in name else segs
-        got = ops.fused_merge_pack(*args, **kw)
+        got, body = run_counted(lambda: ops.fused_merge_pack(*args, **kw),
+                                ops.fused_merge_pack.launches_by_path)
         want = ref.merge_pack_ref(*args, **kw)
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
@@ -355,17 +402,19 @@ def phase2(results: dict) -> None:
                                  f"(max abs err {e})")
         err = max(err, e)
         ms = graph_ms(lambda: ops.fused_merge_pack(*args, **kw))
+        floor = merge_pack_floor_ms(rows, sum(segs), cap, timed, body)
         nbytes, nops = merge_cost(args, kw, got)
         b_ms, b_by = bound(nbytes, nops)
         print(f"phase 2: merge_pack {name}: rows {rows} x {sum(segs)} "
               f"events -> cap {cap}, dropped {int(got[-1].sum())}, exact; "
-              f"kernel {ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
-              f"({b_by})", flush=True)
+              f"{body} body: kernel {ms * 1e3:.2f} us, launch floor "
+              f"{floor * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
+              flush=True)
         if name == "ext_gather_timed":
-            main_case = (args, kw, ms, b_ms, b_by)
-    args, kw, ms, b_ms, b_by = main_case
+            main_case = (args, kw, ms, floor, b_ms, b_by)
+    args, kw, ms, floor, b_ms, b_by = main_case
     results["merge_pack"] = dict(
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, floor_ms=floor,
         plain_ms=eager_ms(lambda: ref.merge_pack_ref(*args, **kw)),
         eager_ms=eager_ms(lambda: ops.fused_merge_pack(*args, **kw)),
         bound_ms=b_ms, bound_by=b_by)
@@ -373,53 +422,67 @@ def phase2(results: dict) -> None:
     # The exchange kernel: FULL_BACKPLANE's shape (batch x 12 sources x 256
     # egress slots, capacity 256), identity-like tables and all-to-all
     # enables as on the main path, then random tables, random enables and
-    # dense traffic so destinations overflow.
+    # dense traffic so destinations overflow; 12 sources into 7
+    # destinations; and two frames for the tiled body: 24 sources (past
+    # one CTA's 4,096 items) and PROJECTED_120CHIP's 120 chips as one star
+    # (more sources than a warp has lanes).
     cfg, plan = plans["FULL_BACKPLANE"]
     n, cap = cfg.n_chips, cfg.capacity
+    params = netlib.to_device(
+        scenarios.engine_network("FULL_BACKPLANE", device="cpu")[1], DEV)
     err = 0.0
     main_case = None
-    for name, occ, random_luts in (("main_path_tables", 0.05, False),
-                                   ("random_tables_overflow", 0.6, True)):
-        labels = ((torch.arange(n, device=DEV, dtype=torch.int32)[:, None]
-                   << 9) + torch.randint(0, 512, (BATCH, n, cap),
+    # (case, n_src, n_dst, cap_in, capacity, occupancy, random tables)
+    for name, n_src, n_dst, cap_in, cap, occ, random_luts in (
+            ("main_path_tables", n, n, 256, cap, 0.05, False),
+            ("random_tables_overflow", n, n, 256, cap, 0.6, True),
+            ("random_tables_12_to_7", n, 7, 256, cap, 0.3, True),
+            ("random_tables_24_sources", 24, n, 256, cap, 0.3, True),
+            ("random_tables_120_chip_star", 120, 120, 64, 128, 0.05, True)):
+        labels = ((torch.arange(n_src, device=DEV, dtype=torch.int32)[:, None]
+                   << 9) + torch.randint(0, 512, (BATCH, n_src, cap_in),
                                          generator=gen, device=DEV,
                                          dtype=torch.int32))
-        valid = torch.rand((BATCH, n, cap), generator=gen, device=DEV) < occ
+        valid = torch.rand((BATCH, n_src, cap_in), generator=gen,
+                           device=DEV) < occ
         if random_luts:
-            fwd = lut(gen, n, 1 << 16, 15, 15)
-            rev = lut(gen, n, 1 << 15, 16, 16)
-            enables = torch.rand((n, n), generator=gen, device=DEV) < 0.7
+            fwd = lut(gen, n_src, 1 << 16, 15, 15)
+            rev = lut(gen, n_dst, 1 << 15, 16, 16)
+            enables = torch.rand((n_src, n_dst), generator=gen,
+                                 device=DEV) < 0.7
         else:
-            params = netlib.to_device(
-                scenarios.engine_network("FULL_BACKPLANE", device="cpu")[1],
-                DEV)
             fwd, rev = params.router.fwd_tables, params.router.rev_tables
             enables = torch.from_numpy(plan.levels[0].enables).to(DEV)
         args = (labels, valid, fwd, rev, enables)
-        got = ops.fused_exchange(*args, capacity=cap)
         want = ref.exchange_ref(*args, capacity=cap)
+        got, body = run_counted(lambda: ops.fused_exchange(*args,
+                                                           capacity=cap),
+                                ops.fused_exchange.launches_by_path)
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
         if e:
-            raise AssertionError(f"exchange {name}: kernel != plain "
-                                 f"(max abs err {e})")
+            raise AssertionError(f"exchange {name} ({body}): kernel != "
+                                 f"plain (max abs err {e})")
         err = max(err, e)
         ms = graph_ms(lambda: ops.fused_exchange(*args, capacity=cap))
+        floor = exchange_floor_ms(labels, n_dst, cap, body)
         b_ms, b_by = bound(*exchange_cost(labels, valid, enables, got))
-        print(f"phase 2: exchange {name}: {BATCH} x {n} x {cap} -> cap "
-              f"{cap}, dropped {int(got[2].sum())}, exact; kernel "
-              f"{ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
+        print(f"phase 2: exchange {name}: {BATCH} x {n_src} x {cap_in} "
+              f"-> {n_dst} x cap {cap}, dropped {int(got[2].sum())}, "
+              f"exact; {body} body: kernel {ms * 1e3:.2f} us, launch floor "
+              f"{floor * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
               flush=True)
         if main_case is None:
-            main_case = (args, ms, b_ms, b_by)
-    args, ms, b_ms, b_by = main_case
+            main_case = (args, ms, floor, b_ms, b_by)
+    args, ms, floor, b_ms, b_by = main_case
     results["exchange"] = dict(
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, floor_ms=floor,
         plain_ms=eager_ms(lambda: ref.exchange_ref(*args, capacity=cap)),
         eager_ms=eager_ms(lambda: ops.fused_exchange(*args, capacity=cap)),
         bound_ms=b_ms, bound_by=b_by)
     for k, r in results.items():
         print(f"phase 2: {k}: kernel {r['ms'] * 1e3:.2f} us (graph replay), "
+              f"launch floor {r['floor_ms'] * 1e3:.2f} us, "
               f"{r['eager_ms'] * 1e3:.2f} us as called, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
               f" us ({r['bound_by']})", flush=True)
@@ -912,8 +975,7 @@ def phase3(launches: dict, gpu: str) -> None:
         stream.run_stream(params, state, drives[:4], cfg, fabric=plan,
                           timed=timed, device=DEV)            # warm-up
         torch.cuda.synchronize()
-        ops.fused_merge_pack.launches = 0
-        ops.fused_exchange.launches = 0
+        reset_snn_counts()
         t0 = time.perf_counter()
         out = stream.run_stream(params, state, drives, cfg, fabric=plan,
                                 timed=timed, device=DEV)
@@ -927,6 +989,14 @@ def phase3(launches: dict, gpu: str) -> None:
         if counts != want:
             raise AssertionError(f"{name}/{mode}: launches {counts}, "
                                  f"expected {want}")
+        # Every main-path launch takes the single-pass bodies.
+        paths = snn_paths()
+        want_paths = {"exchange row": want["exchange"],
+                      "merge_pack warp": want["merge_pack"]}
+        if {k: v for k, v in paths.items() if v} != {
+                k: v for k, v in want_paths.items() if v}:
+            raise AssertionError(f"{name}/{mode}: bodies {paths}, expected "
+                                 f"{want_paths}")
         for k, v in counts.items():
             launches[k] += v
         spikes = int(out.spikes.sum())
@@ -943,7 +1013,8 @@ def phase3(launches: dict, gpu: str) -> None:
                 f"{spikes / wall:.4g} egress events/s, spike occupancy "
                 f"{spikes / out.spikes.numel():.4f}, dropped "
                 f"{int(out.dropped.sum())}, uplink dropped "
-                f"{int(out.uplink_dropped.sum())}, launches {counts}")
+                f"{int(out.uplink_dropped.sum())}, launches {counts}, by "
+                f"body {paths}")
         if timed:
             stats = stream.stream_latency_stats(out)
             line += (f", delivered {stats['count'] / wall:.4g} events/s, "
@@ -956,9 +1027,25 @@ def phase3(launches: dict, gpu: str) -> None:
                   timed=timed, device=DEV)) + f" [{gpu}]", flush=True)
 
 
+def snn_paths() -> dict:
+    return {**{f"exchange {k}": v
+               for k, v in ops.fused_exchange.launches_by_path.items()},
+            **{f"merge_pack {k}": v
+               for k, v in ops.fused_merge_pack.launches_by_path.items()}}
+
+
+def reset_snn_counts() -> None:
+    ops.fused_merge_pack.launches = 0
+    ops.fused_exchange.launches = 0
+    for counts in (ops.fused_exchange.launches_by_path,
+                   ops.fused_merge_pack.launches_by_path):
+        for body in counts:
+            counts[body] = 0
+
+
 def device_breakdown(fn, per: int = PROFILE_STEPS, unit: str = "step",
-                     ours: tuple = ("merge_pack_kernel", "exchange_kernel")
-                     ) -> str:
+                     ours: tuple = ("merge_pack", "exchange_row",
+                                    "exchange_tiled")) -> str:
     """Where a short run's time goes, from a torch.profiler trace: the
     card's busy share of the wall time (kernel time summed over the run,
     under the profiler's own overhead) and the share of the busy time in
@@ -1252,7 +1339,7 @@ def phase7(launches: dict, gpu: str) -> None:
         raise AssertionError(f"stream: {ops.fused_exchange_stream.launches} "
                              f"exchange_stream launches, expected 1")
     launches["exchange_stream"] += ops.fused_exchange_stream.launches
-    ops.fused_exchange.launches = 0
+    reset_snn_counts()
     t0 = time.perf_counter()
     loop = run_loop()
     torch.cuda.synchronize()
@@ -1260,6 +1347,10 @@ def phase7(launches: dict, gpu: str) -> None:
     if ops.fused_exchange.launches != STEPS:
         raise AssertionError(f"route_step loop: {ops.fused_exchange.launches}"
                              f" exchange launches, expected {STEPS}")
+    loop_paths = dict(ops.fused_exchange.launches_by_path)
+    if loop_paths["row"] != STEPS:
+        raise AssertionError(f"route_step loop: bodies {loop_paths}, "
+                             f"expected {STEPS} row")
     launches["exchange"] += ops.fused_exchange.launches
     for name, a, b in (
             ("labels", out_l, torch.stack([f.labels for f, _ in loop])),
@@ -1273,7 +1364,8 @@ def phase7(launches: dict, gpu: str) -> None:
           f"occupancy {OCC}) -> {int(out_v.sum())} delivered, "
           f"{int(dropped.sum())} dropped; one fused_exchange_stream launch "
           f"{stream_s / STEPS * 1e6:.1f} us/step, {STEPS} route_step calls "
-          f"{loop_s / STEPS * 1e6:.1f} us/step; equal bit for bit [{gpu}]",
+          f"{loop_s / STEPS * 1e6:.1f} us/step (exchange launches by body "
+          f"{loop_paths}); equal bit for bit [{gpu}]",
           flush=True)
 
     # The Node-FPGA egress stage on a phase-3-sized run's rasters.

@@ -1,9 +1,10 @@
 // Shared pieces of the spike-router kernels: the bit layout of the LUT
 // entries and wire words (owned by repro_torch.core.routing and
 // repro_torch.core.events), the block-wide rank of 0/1 flags, the scatter
-// tail that applies the rev LUT and the timed lane's queue, and the body of
-// one full exchange round that the exchange and exchange_stream kernels
-// share.
+// tail that applies the rev LUT and the timed lane's queue, the body of
+// one full exchange round that the tiled exchange and exchange_stream
+// kernels share, and the pieces of the single-pass bodies (a thread's run
+// of a row loaded in vector words, warp and block prefix sums).
 #pragma once
 
 #include <cstdint>
@@ -128,6 +129,113 @@ __device__ __forceinline__ void exchange_round(
   const int kept = min(offset, capacity);
   zero_tail<false>(kept, capacity, out_l, out_v, nullptr);
   if (threadIdx.x == 0) *dropped = offset - kept;
+}
+
+
+// ---------------------------------------------------------------------------
+// Single-pass bodies: each thread loads a run of N consecutive items of a
+// row at once, and one prefix sum ranks the whole row.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// One thread's run of N consecutive items of type T (4-, 2- or 1-byte),
+// held as the 32-bit words they occupy.  load() issues 16-, 8- or 4-byte
+// vector loads as the run's address allows, and element loads where the
+// row ends inside the run (avail < N items left) or the address is not
+// 4-byte aligned (odd rows of odd-length int16 or bool rows).  Items past
+// the row's end read as 0.
+template <int N, typename T>
+struct Run {
+  static_assert(sizeof(T) == 1 || sizeof(T) == 2 || sizeof(T) == 4, "T");
+  static_assert((N * sizeof(T)) % 4 == 0, "a run fills whole words");
+  static constexpr int kPer = 4 / sizeof(T);    // items per word
+  static constexpr int kWords = N / kPer;
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const T* __restrict__ p, int avail) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    if (avail >= N) {
+      if constexpr (kWords % 4 == 0) {
+        if (a % 16 == 0) {
+          const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+          for (int k = 0; k < kWords / 4; ++k) {
+            const uint4 x = q[k];
+            w[4 * k] = x.x; w[4 * k + 1] = x.y;
+            w[4 * k + 2] = x.z; w[4 * k + 3] = x.w;
+          }
+          return;
+        }
+      }
+      if constexpr (kWords % 2 == 0) {
+        if (a % 8 == 0) {
+          const uint2* q = reinterpret_cast<const uint2*>(p);
+#pragma unroll
+          for (int k = 0; k < kWords / 2; ++k) {
+            const uint2 x = q[k];
+            w[2 * k] = x.x; w[2 * k + 1] = x.y;
+          }
+          return;
+        }
+      }
+      if (a % 4 == 0) {
+        const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) w[k] = q[k];
+        return;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) w[k] = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < avail) {
+        uint32_t v;
+        if constexpr (sizeof(T) == 4) v = static_cast<uint32_t>(p[i]);
+        else if constexpr (sizeof(T) == 2) v = static_cast<uint16_t>(p[i]);
+        else v = static_cast<uint8_t>(p[i]);
+        w[i / kPer] |= v << (8 * sizeof(T) * (i % kPer));
+      }
+    }
+  }
+
+  // Item i, zero-extended (i a compile-time index after unrolling).
+  __device__ __forceinline__ uint32_t operator[](int i) const {
+    if constexpr (sizeof(T) == 4) return w[i];
+    else return (w[i / kPer] >> (8 * sizeof(T) * (i % kPer))) &
+                ((1u << (8 * sizeof(T))) - 1u);
+  }
+};
+
+// Inclusive sum of v over lanes 0..lane of the warp.
+__device__ __forceinline__ int warp_inclusive(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFullMask, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// Exclusive prefix of v over the block's threads in order, and the block's
+// total in *total.  blockDim.x is a multiple of 32.  One barrier: each warp
+// publishes its sum, then every warp scans the (at most 32) warp sums
+// itself.  warp_sums (32 ints of shared memory) must not be written again
+// before the caller's next barrier.
+__device__ __forceinline__ int block_exclusive(int v, int* warp_sums,
+                                               int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int incl = warp_inclusive(v);
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  const int mine = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane]
+                                                            : 0;
+  const int sums = warp_inclusive(mine);
+  *total = __shfl_sync(kFullMask, sums, 31);
+  return __shfl_sync(kFullMask, sums - mine, warp) + incl - v;
 }
 
 }  // namespace spike_router

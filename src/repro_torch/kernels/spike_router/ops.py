@@ -18,6 +18,10 @@
 
 On CPU tensors each runs its plain version (``ref.py``); on CUDA tensors
 it launches its kernel and counts the launch in its ``launches`` attribute.
+The ``exchange`` and ``merge_pack`` kernels have several bodies, picked
+from the shape by ``exchange_body_for`` and ``merge_pack_body_for`` and
+counted in ``launches_by_path`` too.  This is a dispatch, not a fallback:
+a launch that fails raises.
 """
 
 from __future__ import annotations
@@ -29,6 +33,49 @@ import torch
 from repro_torch.core.routing import FWD_TABLE_SIZE, REV_TABLE_SIZE
 from repro_torch.kernels import INT, PTR, check, launcher, on_card, stream
 from repro_torch.kernels.spike_router import ref as _ref
+
+
+# Bodies of the exchange kernel (csrc/exchange.cu).
+ROW_EVENTS = 4096          # frame items one CTA takes at most (1024 x 4)
+MAX_ROW_SOURCES = 32       # sources of the row body (a lane each)
+ROW_SMEM_LIMIT = 48 * 1024  # shared memory of the row body
+EXCHANGE_BODIES = {"row": 0, "tiled": 1}
+# Bodies of the merge_pack kernel (csrc/merge_pack.cu), by row length.
+WARP_ROW_MAX = 512         # one warp per row, 16 events a lane
+BLOCK_ROW_MAX = 8192       # one CTA of up to 512 threads per row
+MERGE_PACK_BODIES = {"warp": 0, "block": 1, "tiled": 2}
+
+
+def row_smem_bytes(n_src: int, n_dst: int) -> int:
+    """Shared memory of one CTA of the exchange kernel's row body at most
+    (``row_smem_bytes`` in ``exchange.cu``): the run starts, the warp sums,
+    the compacted wire labels (uint16) of ``ROW_EVENTS`` items and the
+    enable matrix."""
+    return 4 * (n_src + 1 + 32) + 2 * ROW_EVENTS + n_src * n_dst
+
+
+def exchange_body_for(n_src: int, cap_in: int, n_dst: int) -> str:
+    """The body the exchange kernel runs for frames of ``n_src x cap_in``
+    items into ``n_dst`` destinations, from the shape alone: ``"row"`` (one
+    CTA per batch row) when the frame has at most ``ROW_EVENTS`` items from
+    at most ``MAX_ROW_SOURCES`` sources and its enables fit
+    ``ROW_SMEM_LIMIT``, else ``"tiled"`` (one CTA per (destination, batch
+    row) walking the merge stream in tiles)."""
+    if (n_src * cap_in <= ROW_EVENTS and n_src <= MAX_ROW_SOURCES
+            and row_smem_bytes(n_src, n_dst) <= ROW_SMEM_LIMIT):
+        return "row"
+    return "tiled"
+
+
+def merge_pack_body_for(n: int) -> str:
+    """The body the merge_pack kernel runs for rows of ``n`` events:
+    ``"warp"`` (one warp per row, a shuffle scan, no block barrier) up to
+    ``WARP_ROW_MAX``, ``"block"`` (one CTA per row, one block scan) up to
+    ``BLOCK_ROW_MAX``, ``"tiled"`` (one CTA walking the row in tiles of
+    256) beyond."""
+    if n <= WARP_ROW_MAX:
+        return "warp"
+    return "block" if n <= BLOCK_ROW_MAX else "tiled"
 
 
 def route_and_pack(labels: torch.Tensor, valid: torch.Tensor,
@@ -107,6 +154,7 @@ def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
     if not on_card(labels, valid, fwd_luts, rev_luts, enables):
         return _ref.exchange_ref(labels, valid, fwd_luts, rev_luts, enables,
                                  capacity=capacity)
+    body = exchange_body_for(n_src, cap_in, n_dst)
     batch = math.prod(lead)
     labels = labels.to(torch.int32).contiguous()
     valid = valid.to(torch.bool).contiguous()
@@ -118,17 +166,20 @@ def fused_exchange(labels: torch.Tensor, valid: torch.Tensor,
     out_v = torch.empty((*lead, n_dst, capacity), dtype=torch.bool, device=dev)
     dropped = torch.empty((*lead, n_dst), dtype=torch.int32, device=dev)
     launch = launcher("exchange", "exchange_launch",
-                      (PTR,) * 5 + (INT,) * 5 + (PTR,) * 4)
+                      (PTR,) * 5 + (INT,) * 6 + (PTR,) * 4)
     check(launch(labels.data_ptr(), valid.data_ptr(), fwd_luts.data_ptr(),
                  rev_luts.data_ptr(), enables.data_ptr(), batch, n_src,
-                 cap_in, n_dst, capacity, out_l.data_ptr(),
-                 out_v.data_ptr(), dropped.data_ptr(), stream()),
-          "exchange")
+                 cap_in, n_dst, capacity, EXCHANGE_BODIES[body],
+                 out_l.data_ptr(), out_v.data_ptr(), dropped.data_ptr(),
+                 stream()),
+          f"exchange ({body})")
     fused_exchange.launches += 1
+    fused_exchange.launches_by_path[body] += 1
     return out_l, out_v, dropped
 
 
 fused_exchange.launches = 0
+fused_exchange.launches_by_path = dict.fromkeys(EXCHANGE_BODIES, 0)
 
 
 def steps_per_block(n_steps: int, n_dst: int, device: torch.device) -> int:
@@ -259,19 +310,22 @@ def fused_merge_pack(labels: torch.Tensor, valid: torch.Tensor,
         times = times.to(torch.int32).contiguous()
         out_t = torch.empty((*lead, capacity), dtype=torch.int32, device=dev)
         service, cc, stall = queue
+    body = merge_pack_body_for(n)
     launch = launcher("merge_pack", "merge_pack_launch",
-                      (PTR, INT, PTR, PTR, PTR) + (INT,) * 7 + (PTR,) * 5)
+                      (PTR, INT, PTR, PTR, PTR) + (INT,) * 8 + (PTR,) * 5)
     check(launch(labels.data_ptr(), int(labels.dtype == torch.int16),
                  valid.data_ptr(), None if times is None else times.data_ptr(),
                  rev_lut.data_ptr(), n_tables, rows, n, capacity, service, cc,
-                 stall, out_l.data_ptr(), out_v.data_ptr(),
-                 None if out_t is None else out_t.data_ptr(),
+                 stall, MERGE_PACK_BODIES[body], out_l.data_ptr(),
+                 out_v.data_ptr(), None if out_t is None else out_t.data_ptr(),
                  dropped.data_ptr(), stream()),
-          "merge_pack")
+          f"merge_pack ({body})")
     fused_merge_pack.launches += 1
+    fused_merge_pack.launches_by_path[body] += 1
     if queue is None:
         return out_l, out_v, dropped
     return out_l, out_v, out_t, dropped
 
 
 fused_merge_pack.launches = 0
+fused_merge_pack.launches_by_path = dict.fromkeys(MERGE_PACK_BODIES, 0)

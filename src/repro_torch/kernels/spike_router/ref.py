@@ -99,7 +99,9 @@ def merge_pack_ref(labels, valid, rev_lut, *, capacity: int,
                                               seg_lens, compact=compact)
     packed = frame.labels
     if rev_lut.dim() == 2:
-        packed = packed.reshape(-1, rev_lut.shape[0], capacity)
+        rows = frame.valid.shape[:-1].numel()
+        packed = packed.reshape(rows // rev_lut.shape[0], rev_lut.shape[0],
+                                capacity)
     chip, rev_en = lookup_rev(rev_lut, packed)
     chip = chip.reshape(frame.labels.shape)
     out_valid = frame.valid & rev_en.reshape(frame.valid.shape)

@@ -201,8 +201,22 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         # Egress: the consumed slot is the one due `delay` steps out.
         inflight[slot] = routed
         steps.append((spikes, *stats))
-    spikes, dropped, uplink, lat, lat_valid, unroutable, rerouted = (
-        torch.stack(x) for x in zip(*steps))
+    if steps:
+        spikes, dropped, uplink, lat, lat_valid, unroutable, rerouted = (
+            torch.stack(x) for x in zip(*steps))
+    else:
+        # Zero steps: the reference's scan returns zero-length outputs of
+        # the per-step shapes and the state it was given.
+        rows = (0, *ext_drives.shape[1:-1])
+        width = plan.capacity if timing is not None else 0
+        spikes = torch.zeros((*rows, cfg.chip.n_neurons),
+                             dtype=chips.neurons.v.dtype, device=device)
+        dropped, uplink, unroutable, rerouted = (
+            torch.zeros(rows, dtype=torch.int32, device=device)
+            for _ in range(4))
+        lat = torch.zeros((*rows, width), dtype=torch.int32, device=device)
+        lat_valid = torch.zeros((*rows, width), dtype=torch.bool,
+                                device=device)
     # Shift-register order: slot `n_steps % delay` holds the oldest frame.
     if delay > 1 and n_steps % delay:
         inflight = torch.roll(inflight, -(n_steps % delay), dims=0)

@@ -173,11 +173,11 @@ SEG_VARIANTS = {
 }
 
 
-def _merge_inputs(seed, wire16, per_row, timed, seg):
-    """Four 48-event streams: most rows overflow CAPACITY, one is empty;
-    compact variants keep each segment front-compacted."""
+def _merge_inputs(seed, wire16, per_row, timed, seg, rows=4, n=48):
+    """``rows`` streams of ``n`` events (four of 48 by default): most rows
+    overflow CAPACITY, one is empty; compact variants keep each segment
+    front-compacted."""
     rng = np.random.default_rng(seed)
-    rows, n = 4, 48
     seg_lens, compact = SEG_VARIANTS[seg]
     if compact:
         valid = np.concatenate(
@@ -247,6 +247,25 @@ def test_fused_merge_pack_per_row_tables_tile_batch_major():
             _eq(f"batch row {b}", r, g[b])
 
 
+@pytest.mark.parametrize("per_row", [False, True])
+def test_fused_merge_pack_capacity_zero_matches_oracle(per_row):
+    """capacity 0: empty outputs, every valid event dropped (the JAX
+    oracle; the Pallas body divides by the capacity and cannot run it)."""
+    labels, valid, rev, times, queue, _, _ = _merge_inputs(
+        11, False, per_row, True, "global")
+    got = tops.fused_merge_pack(
+        torch.from_numpy(labels), torch.from_numpy(valid),
+        torch.from_numpy(rev), capacity=0, times=torch.from_numpy(times),
+        queue=queue)
+    ref = jops.fused_merge_pack(
+        jnp.asarray(labels), jnp.asarray(valid), jnp.asarray(rev),
+        capacity=0, mode="jax", times=jnp.asarray(times), queue=queue)
+    assert len(ref) == len(got) == 4
+    for i, (r, g) in enumerate(zip(ref, got)):
+        _eq(f"output {i}", r, g)
+    assert int(got[-1].sum()) == int(valid.sum())
+
+
 def test_fused_merge_pack_argument_checks():
     lab = torch.zeros((2, 8), dtype=torch.int32)
     rev = torch.zeros(1 << 15, dtype=torch.int32)
@@ -285,6 +304,28 @@ def test_fused_exchange_matches_pallas_and_oracle(seed, n_src, cap_in):
                 _eq(f"{mode} batch {b} output {i}", r, g[b])
 
 
+@pytest.mark.parametrize("shape,body", [
+    ((12, 256, 12), "row"),               # FULL_BACKPLANE, one CTA a row
+    ((12, 64, 12), "row"),                # route_step's 12 x 64 frames
+    ((24, 256, 10), "tiled"),             # longer than one CTA's 4,096
+    ((16, 256, 3), "row"),                # exactly one CTA's 4,096 items
+    ((1, 4097, 3), "tiled"),              # one item past one CTA
+    ((32, 64, 12), "row"),                # a source per lane of a warp
+    ((33, 64, 12), "tiled"),              # more sources than lanes
+    ((12, 64, 16000), "tiled"),           # enables outgrow shared memory
+])
+def test_exchange_body_rule(shape, body):
+    assert tops.exchange_body_for(*shape) == body
+
+
+@pytest.mark.parametrize("n,body", [(1, "warp"), (292, "warp"),
+                                    (496, "warp"), (512, "warp"),
+                                    (513, "block"), (3072, "block"),
+                                    (8192, "block"), (8193, "tiled")])
+def test_merge_pack_body_rule(n, body):
+    assert tops.merge_pack_body_for(n) == body
+
+
 def test_cpu_tensors_never_launch():
     before = (tops.fused_merge_pack.launches, tops.fused_exchange.launches)
     test_fused_merge_pack_per_row_tables_tile_batch_major()
@@ -312,37 +353,85 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (segment layout, (rows, n, capacity)): every layout at the default shape,
+# then shapes that reach each body and its edges in the global layout.
+MERGE_SHAPES = [(seg, (4, 48, CAPACITY)) for seg in SEG_VARIANTS] + [
+    ("global", (6, 47, CAPACITY)),        # odd n: int16 rows off 4-byte
+    ("global", (5, 20, 8)),               # rows shorter than a warp
+    ("global", (9, 515, 40)),             # the block body, n % 16 != 0
+    ("global", (3, 3072, 256)),           # the block body at 3,072 events
+    ("global", (2, 8192, 8192)),          # its longest stage (48 KiB timed)
+    ("global", (2, 9001, 300)),           # the tiled body
+    ("global", (4, 48, 0)),               # capacity 0: everything drops
+    ("global", (4, 48, 64)),              # capacity beyond the stream
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seg", list(SEG_VARIANTS))
+@pytest.mark.parametrize("seg,shape", MERGE_SHAPES,
+                         ids=[f"{s}-{r}x{n}-cap{c}"
+                              for s, (r, n, c) in MERGE_SHAPES])
 @pytest.mark.parametrize("wire16,per_row,timed", [
     (False, False, False), (False, True, True),
     (True, False, True), (True, True, False)])
 def test_merge_pack_kernel_matches_plain(cuda_device, wire16, per_row, timed,
-                                         seg):
+                                         seg, shape):
+    rows, n, capacity = shape
     labels, valid, rev, times, queue, seg_lens, compact = _merge_inputs(
-        6, wire16, per_row, timed, seg)
+        6, wire16, per_row, timed, seg, rows, n)
     args = [torch.from_numpy(a) for a in (labels, valid, rev)]
-    kw = dict(capacity=CAPACITY, seg_lens=seg_lens, compact=compact,
+    kw = dict(capacity=capacity, seg_lens=seg_lens, compact=compact,
               queue=queue)
     t = None if times is None else torch.from_numpy(times)
     ref = tref.merge_pack_ref(*args, times=t, **kw)
+    body = tops.merge_pack_body_for(n)
+    before = dict(tops.fused_merge_pack.launches_by_path)
     got = tops.fused_merge_pack(*(a.to(cuda_device) for a in args),
                                 times=None if t is None else
                                 t.to(cuda_device), **kw)
     torch.cuda.synchronize()
+    assert tops.fused_merge_pack.launches_by_path == {
+        **before, body: before[body] + 1}
     for r, g in zip(ref, got):
         assert torch.equal(r, g.cpu())
 
 
+# (batch, n_src, cap_in, n_dst, capacity, occupancy, enable share, body)
+EXCHANGE_SHAPES = {
+    "square": (3, 12, 64, 12, 256, 0.6, 0.8, "row"),
+    "n_src_ne_n_dst": (2, 5, 37, 7, 40, 0.6, 0.7, "row"),
+    "ragged_cap_in": (4, 3, 33, 9, 50, 0.9, 0.8, "row"),
+    "capacity_0": (2, 4, 20, 3, 0, 0.5, 1.0, "row"),
+    "capacity_beyond_stream": (2, 6, 50, 5, 300, 0.9, 0.9, "row"),
+    "every_enable_off": (2, 6, 50, 5, 30, 0.9, 0.0, "row"),
+    "row_32_sources": (2, 32, 40, 9, 300, 0.5, 0.7, "row"),
+    "row_4096_items": (2, 16, 256, 12, 300, 0.3, 0.8, "row"),
+    "long_frame_24_sources": (2, 24, 256, 10, 512, 0.5, 0.7, "tiled"),
+    "long_frame_ragged": (3, 31, 203, 9, 300, 0.3, 0.8, "tiled"),
+    "longest_frame": (1, 32, 2048, 4, 256, 0.05, 0.9, "tiled"),
+    "wide_tables_tiled": (2, 100, 8, 100, 16, 0.5, 0.5, "tiled"),
+    "long_frame_tiled": (1, 17, 4096, 3, 512, 0.1, 0.9, "tiled"),
+}
+
+
 @pytest.mark.cuda
-def test_exchange_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("case", list(EXCHANGE_SHAPES))
+def test_exchange_kernel_matches_plain(cuda_device, case):
+    batch, n_src, cap_in, n_dst, capacity, occ, en_p, body = \
+        EXCHANGE_SHAPES[case]
     rng = np.random.default_rng(10)
-    arrays = (rng.integers(0, 1 << 16, (3, 12, 64)).astype(np.int32),
-              rng.random((3, 12, 64)) < 0.6, _fwd_tables(rng, 12),
-              _rev_tables(rng, 12), rng.random((12, 12)) < 0.8)
+    arrays = (rng.integers(0, 1 << 16, (batch, n_src, cap_in)).astype(
+                  np.int32),
+              rng.random((batch, n_src, cap_in)) < occ,
+              _fwd_tables(rng, n_src), _rev_tables(rng, n_dst),
+              rng.random((n_src, n_dst)) < en_p)
     cpu = [torch.from_numpy(a) for a in arrays]
-    ref = tref.exchange_ref(*cpu, capacity=256)
-    got = tops.fused_exchange(*(a.to(cuda_device) for a in cpu), capacity=256)
+    ref = tref.exchange_ref(*cpu, capacity=capacity)
+    before = dict(tops.fused_exchange.launches_by_path)
+    got = tops.fused_exchange(*(a.to(cuda_device) for a in cpu),
+                              capacity=capacity)
     torch.cuda.synchronize()
+    assert tops.fused_exchange.launches_by_path == {
+        **before, body: before[body] + 1}
     for r, g in zip(ref, got):
         assert torch.equal(r, g.cpu())

@@ -279,6 +279,51 @@ def test_run_stream_matches_reference(name, mode, timed):
         parity.assert_equal(f"teacher-forced {field}", r, g.transpose(0, 1))
 
 
+@pytest.mark.parametrize("name,mode,timed", [
+    ("FULL_BACKPLANE", "gather", False),
+    ("FULL_BACKPLANE", "routed", False),
+    ("EXT_4CASE_96CHIP", "gather", True),
+    ("EXT_4CASE_96CHIP", "routed", True),
+])
+def test_run_stream_zero_steps_matches_reference(name, mode, timed):
+    """T = 0: zero-length outputs of the reference's shapes and types (the
+    latency planes zero-width untimed, capacity-wide timed) and the state
+    it was given, bit for bit."""
+    cfg_j, params_j, plan_j = jsc.engine_network(
+        name, chip=jchip.ChipConfig(**SMALL_CHIP))
+    plan_j = jfab.with_exchange_mode(plan_j, mode)
+    cfg_t, _, plan_t = tsc.engine_network(
+        name, chip=tchip.ChipConfig(**SMALL_CHIP), device="cpu")
+    plan_t = tfab.with_exchange_mode(plan_t, mode)
+    params_t = convert.network_params_from_numpy(flatten(params_j),
+                                                 device="cpu")
+    rng = np.random.default_rng(6)
+    # A non-resting state, so that "unchanged" is not "reset".
+    state_j = jax.tree_util.tree_map(
+        lambda a: a + rng.integers(0, 4, a.shape).astype(a.dtype),
+        jnet.init_state(cfg_j, BATCH))
+    state_np = flatten(state_j)
+    state_t = convert.network_state_from_numpy(state_np, device="cpu")
+    drives = np.zeros((0, cfg_j.n_chips, BATCH, cfg_j.chip.n_rows),
+                      np.float32)
+
+    ref = jstream.run_stream(params_j, state_j, jnp.asarray(drives), cfg_j,
+                             fabric=plan_j, timed=timed)
+    got = tstream.run_stream(params_t, state_t, torch.from_numpy(drives),
+                             cfg_t, fabric=plan_t, timed=timed, device="cpu")
+    for field in ("spikes", "dropped", "uplink_dropped", "latency_ns",
+                  "latency_valid", "unroutable", "rerouted"):
+        r, g = np.asarray(getattr(ref, field)), getattr(got, field).numpy()
+        assert g.shape == r.shape and g.dtype == r.dtype, (field, g.shape,
+                                                           r.shape)
+    assert got.latency_ns.shape[-1] == (cfg_j.capacity if timed else 0)
+    for (path, r), g in zip(flatten(ref.state).items(),
+                            jax.tree_util.tree_leaves(tuple(got.state))):
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=path)
+        np.testing.assert_array_equal(g.numpy(), state_np[path],
+                                      err_msg=path)
+
+
 def test_run_stream_star_topology_and_ring_order():
     """The legacy star path (enables from the router) with a delay line
     deeper than one step, so the ring buffer's roll back to shift order is
