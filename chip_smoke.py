@@ -17,12 +17,13 @@ Phases, each reported on its own lines:
    body; the scan's scalar-decay body against its twin and the chunked
    form, its per-channel body); device time per launch (CUDA-graph
    replay), the plain version's time, a library call's time where one
-   computes the same function, and the bound.  The streaming exchange is also timed against
-   the exchange kernel run with batch = T on the same frames.  Every
-   exchange and merge_pack case names the body it ran and prints its
-   launch floor: the graph-replay time of an empty kernel with the same
-   grid, block and shared memory (``*_floor_launch`` in the kernels'
-   sources).
+   computes the same function, and the bound.  The streaming exchange is
+   also timed, in turns, against the exchange kernel run with batch = T
+   on the same frames.  Every SNN kernel case names the body it ran and
+   prints its launch floor: the graph-replay time of an empty kernel with
+   the same grid, block and shared memory (``*_floor_launch`` in the
+   kernels' sources); cases reach every body of the exchange, merge_pack,
+   egress-router and streaming kernels.
 3. The SNN main path at full width (512 neurons x 256 rows per chip, batch
    8, 64 steps): ``run_stream`` on FULL_BACKPLANE (untimed gather: the
    exchange kernel), EXT_4CASE_96CHIP (timed, gather and routed) and
@@ -50,7 +51,10 @@ Phases, each reported on its own lines:
    calls (µs/step of each); then the Node-FPGA egress stage
    (``route_and_pack``, identity fwd LUT, cap_in 32) on the spike rasters
    of a phase-3-sized PROJECTED_120CHIP run (batch 8, 120 chips x 512
-   neurons, 64 steps), bit for bit against its plain version.
+   neurons, 64 steps), bit for bit against its plain version, with the
+   label grid and rasters read in place (µs/step as called, beside the
+   same loop on the caller's contiguous copies).  The stream's launch
+   and all 64 egress launches must take the row body.
 8. The LIF path: 64 steps of ``lif_step`` at the chips' full width
    (8 x 120 chips, 512 neurons), teacher-forced: at each step the kernel
    and ``lif_step_ref`` start from the plain trajectory's state and agree
@@ -64,6 +68,7 @@ either it fails before printing a result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import itertools
@@ -109,6 +114,7 @@ from repro_torch.snn import stream  # noqa: E402
 from repro_torch.core.latency import timed_wire  # noqa: E402
 
 DEV = torch.device("cuda")
+SMS = torch.cuda.get_device_properties(DEV).multi_processor_count
 BATCH, STEPS, CHECK_STEPS, PROFILE_STEPS = 8, 64, 16, 8
 # Each synapse row receives an external spike with this probability per
 # step: on the feed-forward network it puts the neurons' spike occupancy
@@ -355,6 +361,29 @@ def exchange_floor_ms(labels, n_dst: int, cap: int, body: str) -> float:
                                   "exchange floor"))
 
 
+def spike_router_floor_ms(rows: int, n: int, cap: int, body: str) -> float:
+    """The launch floor of a spike_router call: graph replay of an empty
+    kernel with the grid, block and shared memory of ``body``."""
+    launch = launcher("spike_router", "spike_router_floor_launch",
+                      (INT,) * 4 + (PTR,))
+    code = ops.ROUTE_AND_PACK_BODIES[body]
+    return graph_ms(lambda: check(launch(rows, n, cap, code, cuda_stream()),
+                                  "spike_router floor"))
+
+
+def stream_floor_ms(labels, n_dst: int, cap: int, body: str) -> float:
+    """The launch floor of an exchange_stream call: graph replay of an
+    empty kernel with the grid, block and shared memory of ``body``."""
+    launch = launcher("exchange_stream", "exchange_stream_floor_launch",
+                      (INT,) * 7 + (PTR,))
+    steps, n_src, cap_in = labels.shape
+    groups = ops.row_groups(steps, n_dst, SMS) if body == "row" else 1
+    return graph_ms(lambda: check(launch(steps, n_src, cap_in, n_dst, cap,
+                                         ops.EXCHANGE_BODIES[body], groups,
+                                         cuda_stream()),
+                                  "exchange_stream floor"))
+
+
 def phase2(results: dict) -> None:
     gen = torch.Generator(device=DEV).manual_seed(2)
     plans = {name: scenarios.engine_network(name, device="cpu")[::2]
@@ -557,21 +586,48 @@ def phase2_interconnect(results: dict) -> None:
     gen = torch.Generator(device=DEV).manual_seed(12)
 
     # The egress router: the main path's shape (phase 7), a random LUT over
-    # labels anywhere in int32, and dense rows that overflow cap_in.
+    # labels anywhere in int32, dense rows that overflow cap_in, phase 7's
+    # call as it is made (the label grid expanded over the batch and a
+    # transposed raster, read in place), then long rows: the row body with
+    # one and with two stripes a lane, and the tiled body.
     lead = (BATCH, 120)
     err = 0.0
     main_case = None
     for name, occ, random_lut in (("main path: identity LUT", OCC, False),
                                   ("random LUT, 15% disabled", 0.3, True),
-                                  ("dense rows overflow", 0.9, False)):
-        labels, valid, table = egress_case(gen, lead, occ, random_lut)
-        got = ops.route_and_pack(labels, valid, table, capacity=EGRESS_CAP)
-        want = ref.spike_router_ref(labels, valid, table, capacity=EGRESS_CAP)
+                                  ("dense rows overflow", 0.9, False),
+                                  ("phase 7's views, read in place", OCC,
+                                   False),
+                                  ("3,000 events a row", 0.3, True),
+                                  ("6,000 events a row", 0.3, True),
+                                  ("8,193 events a row", 0.3, True)):
+        cap = EGRESS_CAP
+        if "events a row" in name:
+            n = int(name.split()[0].replace(",", ""))
+            cap = 256
+            labels = torch.randint(-(1 << 31), (1 << 31) - 1, (BATCH, 12, n),
+                                   generator=gen, device=DEV,
+                                   dtype=torch.int32)
+            labels[..., ::2] &= 0xFFFF            # a share on mapped entries
+            valid = torch.rand(labels.shape, generator=gen, device=DEV) < occ
+            table = lut(gen, 1, 1 << 16, 15, 15)[0]
+        else:
+            labels, valid, table = egress_case(gen, lead, occ, random_lut)
+        if "views" in name:
+            labels = labels[0, None].expand(labels.shape)
+            valid = valid.transpose(0, 1).contiguous().transpose(0, 1)
+            if ops.row_layout(labels) is None or ops.row_layout(valid) is None:
+                raise AssertionError("spike_router: phase 7's views would be "
+                                     "copied")
+        got, body = run_counted(
+            lambda: ops.route_and_pack(labels, valid, table, capacity=cap),
+            ops.route_and_pack.launches_by_path)
+        want = ref.spike_router_ref(labels, valid, table, capacity=cap)
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
         if e:
-            raise AssertionError(f"spike_router {name}: kernel != plain "
-                                 f"(max abs err {e})")
+            raise AssertionError(f"spike_router {name} ({body}): kernel != "
+                                 f"plain (max abs err {e})")
         enabled = int(got[1].sum()) + int(got[2].sum())
         disabled = int(valid.sum()) - enabled
         if "overflow" in name and not int(got[2].sum()):
@@ -579,18 +635,21 @@ def phase2_interconnect(results: dict) -> None:
         if not disabled:
             raise AssertionError(f"spike_router {name}: no disabled events")
         ms = graph_ms(lambda: ops.route_and_pack(labels, valid, table,
-                                                 capacity=EGRESS_CAP))
+                                                 capacity=cap))
+        rows, n = valid.numel() // valid.shape[-1], valid.shape[-1]
+        floor = spike_router_floor_ms(rows, n, cap, body)
         b_ms, b_by = bound(*router_cost(labels, valid, got))
         print(f"phase 2: spike_router {name}: {tuple(labels.shape)} -> cap "
-              f"{EGRESS_CAP}, {int(valid.sum())} valid, {disabled} disabled, "
-              f"dropped {int(got[2].sum())}, exact; kernel {ms * 1e3:.2f} us, "
-              f"bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+              f"{cap}, {int(valid.sum())} valid, {disabled} disabled, "
+              f"dropped {int(got[2].sum())}, exact; {body} body: kernel "
+              f"{ms * 1e3:.2f} us, launch floor {floor * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by})", flush=True)
         if main_case is None:
-            main_case = (labels, valid, table, ms, b_ms, b_by)
+            main_case = (labels, valid, table, ms, floor, b_ms, b_by)
         err = max(err, e)
-    labels, valid, table, ms, b_ms, b_by = main_case
+    labels, valid, table, ms, floor, b_ms, b_by = main_case
     results["spike_router"] = dict(
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, floor_ms=floor,
         plain_ms=eager_ms(lambda: ref.spike_router_ref(
             labels, valid, table, capacity=EGRESS_CAP)),
         eager_ms=eager_ms(lambda: ops.route_and_pack(
@@ -600,16 +659,18 @@ def phase2_interconnect(results: dict) -> None:
     # The streaming exchange: FULL_BACKPLANE's T = 64 x 12 sources x 64
     # egress slots into capacity 256 with its tables (phase 7), then random
     # tables with disabled entries, random enables and dense traffic into a
-    # capacity that overflows.  Each against its plain version and against
-    # the exchange kernel with batch = T on the same frames.
+    # capacity that overflows, then a 33-source star for the tiled body.
+    # Each against its plain version and against the exchange kernel with
+    # batch = T on the same frames (the same bodies, the row body with one
+    # CTA a frame), timed in turns.
     cfg, params, _ = scenarios.engine_network("FULL_BACKPLANE", device=DEV)
-    n = cfg.n_chips
     cap_in = next(c[2] for c in scenarios.CASES if c[0] == "FULL_BACKPLANE")
     err = 0.0
     main_case = None
-    for name, occ, random_luts, cap in (
-            ("main path tables", OCC, False, cfg.capacity),
-            ("random tables overflow", 0.6, True, 64)):
+    for name, n, occ, random_luts, cap in (
+            ("main path tables", cfg.n_chips, OCC, False, cfg.capacity),
+            ("random tables overflow", cfg.n_chips, 0.6, True, 64),
+            ("tiled body: 33 sources", 33, 0.3, True, 256)):
         labels = ((torch.arange(n, device=DEV, dtype=torch.int32)[:, None]
                    << 9) + torch.randint(0, 512, (STEPS, n, cap_in),
                                          generator=gen, device=DEV,
@@ -623,32 +684,42 @@ def phase2_interconnect(results: dict) -> None:
         else:
             fwd, rev, enables = params.router
         args = (labels, valid, fwd, rev, enables)
-        got = ops.fused_exchange_stream(*args, capacity=cap)
+        got, body = run_counted(
+            lambda: ops.fused_exchange_stream(*args, capacity=cap),
+            ops.fused_exchange_stream.launches_by_path)
         want = ref.exchange_stream_ref(*args, capacity=cap)
         per_step = ops.fused_exchange(*args, capacity=cap)
         torch.cuda.synchronize()
         e = max(max_abs_err(got, want), max_abs_err(got, per_step))
         if e:
-            raise AssertionError(f"exchange_stream {name}: kernel != plain or "
-                                 f"!= exchange (max abs err {e})")
+            raise AssertionError(f"exchange_stream {name} ({body}): kernel "
+                                 f"!= plain or != exchange (max abs err {e})")
         if random_luts and not int(got[2].sum()):
             raise AssertionError(f"exchange_stream {name}: no overflow")
-        ms = graph_ms(lambda: ops.fused_exchange_stream(*args, capacity=cap))
-        ex_ms = graph_ms(lambda: ops.fused_exchange(*args, capacity=cap))
+        ms, ex_ms, ex_ms2, ms2 = (graph_ms(lambda: f(*args, capacity=cap))
+                                  for f in (ops.fused_exchange_stream,
+                                            ops.fused_exchange,
+                                            ops.fused_exchange,
+                                            ops.fused_exchange_stream))
+        floor = stream_floor_ms(labels, n, cap, body)
         b_ms, b_by = bound(*exchange_cost(labels, valid, enables, got))
-        print(f"phase 2: exchange_stream {name}: T {STEPS} x {n} x {cap_in} "
-              f"-> cap {cap}, steps/block "
-              f"{ops.steps_per_block(STEPS, n, DEV)}, dropped "
-              f"{int(got[2].sum())}, exact and == exchange(batch = T); "
-              f"kernel {ms * 1e3:.2f} us, exchange kernel with batch = T "
-              f"{ex_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
-              flush=True)
+        line = (f"phase 2: exchange_stream {name}: T {STEPS} x {n} x {cap_in} "
+                f"-> cap {cap}, dropped {int(got[2].sum())}, exact and == "
+                f"exchange(batch = T); {body} body: kernel {ms * 1e3:.2f}/"
+                f"{ms2 * 1e3:.2f} us (turns 1 and 4), launch floor "
+                f"{floor * 1e3:.2f} us, exchange kernel with batch = T "
+                f"{ex_ms * 1e3:.2f}/{ex_ms2 * 1e3:.2f} us (turns 2 and 3), "
+                f"bound {b_ms * 1e3:.2f} us ({b_by})")
+        if body == "row":
+            line += (f"; {ops.row_groups(STEPS, n, SMS)} CTAs a timestep (the "
+                     f"exchange kernel: one a batch row)")
+        print(line, flush=True)
         if main_case is None:
-            main_case = (args, cap, ms, b_ms, b_by)
+            main_case = (args, cap, ms, floor, b_ms, b_by)
         err = max(err, e)
-    args, cap, ms, b_ms, b_by = main_case
+    args, cap, ms, floor, b_ms, b_by = main_case
     results["exchange_stream"] = dict(
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, floor_ms=floor,
         plain_ms=eager_ms(lambda: ref.exchange_stream_ref(*args,
                                                           capacity=cap)),
         eager_ms=eager_ms(lambda: ops.fused_exchange_stream(*args,
@@ -679,14 +750,19 @@ def phase2_interconnect(results: dict) -> None:
     # Bytes: three float32 inputs read once, three outputs written once;
     # operations: 12 float32 operations per neuron.
     b_ms, b_by = bound(24 * v.numel(), 12 * v.numel())
+    floor_launch = launcher("lif_step", "lif_step_floor_launch",
+                            (ctypes.c_int64, PTR))
+    floor = graph_ms(lambda: check(floor_launch(v.numel(), cuda_stream()),
+                                   "lif_step floor"))
     results["lif_step"] = dict(
-        max_abs_err=err, ms=ms,
+        max_abs_err=err, ms=ms, floor_ms=floor,
         plain_ms=eager_ms(lambda: lif_step_ref(v, i, d)),
         eager_ms=eager_ms(lambda: lif_ops.lif_step(v, i, d)),
         bound_ms=b_ms, bound_by=b_by)
     for k in ("spike_router", "exchange_stream", "lif_step"):
         r = results[k]
         print(f"phase 2: {k}: kernel {r['ms'] * 1e3:.2f} us (graph replay), "
+              f"launch floor {r['floor_ms'] * 1e3:.2f} us, "
               f"{r['eager_ms'] * 1e3:.2f} us as called, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
               f" us ({r['bound_by']})", flush=True)
@@ -1034,13 +1110,16 @@ def snn_paths() -> dict:
                for k, v in ops.fused_merge_pack.launches_by_path.items()}}
 
 
+def reset_counts(wrapper) -> None:
+    """Sets a kernel wrapper's launch counts, in all and by body, to 0."""
+    wrapper.launches = 0
+    for body in wrapper.launches_by_path:
+        wrapper.launches_by_path[body] = 0
+
+
 def reset_snn_counts() -> None:
-    ops.fused_merge_pack.launches = 0
-    ops.fused_exchange.launches = 0
-    for counts in (ops.fused_exchange.launches_by_path,
-                   ops.fused_merge_pack.launches_by_path):
-        for body in counts:
-            counts[body] = 0
+    reset_counts(ops.fused_merge_pack)
+    reset_counts(ops.fused_exchange)
 
 
 def device_breakdown(fn, per: int = PROFILE_STEPS, unit: str = "step",
@@ -1150,12 +1229,8 @@ def lm_paths() -> dict:
 
 
 def reset_lm_counts() -> None:
-    flash_ops.flash_attention.launches = 0
-    scan_ops.linear_scan.launches = 0
-    for counts in (flash_ops.flash_attention.launches_by_path,
-                   scan_ops.linear_scan.launches_by_path):
-        for body in counts:
-            counts[body] = 0
+    reset_counts(flash_ops.flash_attention)
+    reset_counts(scan_ops.linear_scan)
 
 
 def phase5(launches: dict, gpu: str) -> None:
@@ -1330,14 +1405,16 @@ def phase7(launches: dict, gpu: str) -> None:
 
     run_stream_engine(), run_loop()                         # warm-up
     torch.cuda.synchronize()
-    ops.fused_exchange_stream.launches = 0
+    reset_counts(ops.fused_exchange_stream)
     t0 = time.perf_counter()
     out_l, out_v, dropped = run_stream_engine()
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    if ops.fused_exchange_stream.launches != 1:
+    stream_paths = dict(ops.fused_exchange_stream.launches_by_path)
+    if ops.fused_exchange_stream.launches != 1 or stream_paths["row"] != 1:
         raise AssertionError(f"stream: {ops.fused_exchange_stream.launches} "
-                             f"exchange_stream launches, expected 1")
+                             f"exchange_stream launches, bodies "
+                             f"{stream_paths}, expected 1 row")
     launches["exchange_stream"] += ops.fused_exchange_stream.launches
     reset_snn_counts()
     t0 = time.perf_counter()
@@ -1363,6 +1440,7 @@ def phase7(launches: dict, gpu: str) -> None:
           f"{cap_in} egress frames ({int(frames.valid.sum())} events, "
           f"occupancy {OCC}) -> {int(out_v.sum())} delivered, "
           f"{int(dropped.sum())} dropped; one fused_exchange_stream launch "
+          f"(bodies {stream_paths}) "
           f"{stream_s / STEPS * 1e6:.1f} us/step, {STEPS} route_step calls "
           f"{loop_s / STEPS * 1e6:.1f} us/step (exchange launches by body "
           f"{loop_paths}); equal bit for bit [{gpu}]",
@@ -1380,19 +1458,36 @@ def phase7(launches: dict, gpu: str) -> None:
     grid = stream.egress_label_grid(cfg, DEV)
     table = params.router.fwd_tables[0]
     rasters = [out.spikes[t].transpose(0, 1) > 0.5 for t in range(STEPS)]
-    ops.route_and_pack(grid.expand(rasters[0].shape), rasters[0], table,
-                       capacity=EGRESS_CAP)                  # warm-up
+
+    def egress_loop(copy: bool):
+        # copy: the caller makes the labels and flags contiguous first, as
+        # the wrapper did before it read such views in place.
+        return [ops.route_and_pack(
+            *((x.contiguous() if copy else x)
+              for x in (grid.expand(r.shape), r)),
+            table, capacity=EGRESS_CAP) for r in rasters]
+
+    egress_loop(False), egress_loop(True)                   # warm-up
     torch.cuda.synchronize()
-    ops.route_and_pack.launches = 0
+    reset_counts(ops.route_and_pack)
     t0 = time.perf_counter()
-    egress = [ops.route_and_pack(grid.expand(r.shape), r, table,
-                                 capacity=EGRESS_CAP) for r in rasters]
+    egress = egress_loop(False)
     torch.cuda.synchronize()
     egress_s = time.perf_counter() - t0
-    if ops.route_and_pack.launches != STEPS:
+    egress_paths = dict(ops.route_and_pack.launches_by_path)
+    if ops.route_and_pack.launches != STEPS or egress_paths["row"] != STEPS:
         raise AssertionError(f"egress: {ops.route_and_pack.launches} "
-                             f"spike_router launches, expected {STEPS}")
+                             f"spike_router launches, bodies {egress_paths}, "
+                             f"expected {STEPS} row")
     launches["spike_router"] += ops.route_and_pack.launches
+    t0 = time.perf_counter()
+    copied = egress_loop(True)
+    torch.cuda.synchronize()
+    copied_s = time.perf_counter() - t0
+    for field, a, b in zip(("labels", "valid", "dropped"),
+                           (torch.stack(x) for x in zip(*egress)),
+                           (torch.stack(x) for x in zip(*copied))):
+        parity.assert_equal(f"egress in place vs copied {field}", a, b)
     events = kept = dropped = 0
     for t, (r, got) in enumerate(zip(rasters, egress)):
         want = ref.spike_router_ref(grid.expand(r.shape), r, table,
@@ -1409,8 +1504,11 @@ def phase7(launches: dict, gpu: str) -> None:
           f"({events} spikes, occupancy {events / out.spikes.numel():.4f}) "
           f"-> cap_in {EGRESS_CAP}: {kept} kept, {dropped} dropped, "
           f"{events - kept - dropped} disabled (chips >= 64 under the "
-          f"identity LUT); {egress_s / STEPS * 1e6:.1f} us/step as called; "
-          f"equal to the plain version bit for bit [{gpu}]", flush=True)
+          f"identity LUT); bodies {egress_paths}; {egress_s / STEPS * 1e6:.1f}"
+          f" us/step as called, labels and flags read in place "
+          f"({copied_s / STEPS * 1e6:.1f} us/step with the caller's "
+          f"contiguous copies); equal to the plain version bit for bit "
+          f"[{gpu}]", flush=True)
 
 
 # ---------------------------------------------------------------------------

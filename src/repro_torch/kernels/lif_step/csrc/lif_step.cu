@@ -52,6 +52,8 @@ lif_step_kernel(const float* __restrict__ v_in, const float* __restrict__ i_in,
   s_out[k] = spike;
 }
 
+__global__ void lif_step_floor_kernel() {}
+
 }  // namespace lif_step
 
 // v, i_syn, drive: float32 [n]; outputs v_out, i_out, s_out float32 [n].
@@ -72,5 +74,16 @@ extern "C" int lif_step_launch(const void* v, const void* i_syn,
       Params{alpha_syn, c_mem, v_leak, v_th, v_reset},
       static_cast<float*>(v_out), static_cast<float*>(i_out),
       static_cast<float*>(s_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch floor of lif_step_launch: an empty kernel with its grid and
+// block at n elements (chip_smoke.py times it beside the kernel).
+extern "C" int lif_step_floor_launch(int64_t n, void* stream) {
+  using namespace lif_step;
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  lif_step_floor_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,6 @@
 
 namespace spike_router {
 
-constexpr int kRun = 4;                   // consecutive events a lane loads
 constexpr int kStripes = 4;               // runs a lane takes in its segment
 constexpr int kItems = kRun * kStripes;   // 16 events a lane
 constexpr int kWarpRowMax = 32 * kItems;  // 512: a warp's segment of a row
@@ -58,25 +57,9 @@ enum Body { kWarpBody = 0, kBlockBody = 1, kTiledBody = 2 };
 template <bool kWire16>
 using Label = typename std::conditional<kWire16, int16_t, int32_t>::type;
 
-// Shared memory a row stages its kept events in: the wire labels (uint16)
-// of slots [0, min(n, capacity)) and, timed, their times.
-__host__ __device__ inline int stage_len(int n, int capacity) {
-  return min(n, capacity);
-}
-__host__ __device__ inline int stage_bytes(int len, bool timed) {
-  return (2 * len + 3) / 4 * 4 + (timed ? 4 * len : 0);
-}
-
-// A warp ranks a segment of up to 512 events of a row: stripe k holds
-// events [128k, 128k + 128) of the segment, lane l its run of 4 at
-// 128k + 4l, so each load instruction of the warp reads one contiguous
-// stretch (16 bytes a lane for int32).  The events before (k, l, j) are the
-// segment's stripes before k, the lanes before l in stripe k, and the
-// run's slots before j: one warp scan over the lanes' four run counts,
-// packed a byte each, gives them all.  Kept events (rank < capacity) are
-// staged in shared memory at their slot; then the row's threads walk the
-// slots, kEmit at a time each: rev gathers together, stores contiguous
-// across threads, empty slots zeroed.
+// The warp and block bodies (striped rows, pack.cuh): the row's threads
+// walk the staged slots kEmit at a time each, rev gathers together, stores
+// contiguous across threads, empty slots zeroed.
 constexpr int kEmit = 4;
 
 template <bool kWire16, bool kTimed, bool kBlock>
@@ -113,7 +96,7 @@ merge_pack_scan_kernel(const void* __restrict__ labels_,
   Run<kRun, int32_t> tim[kStripes];
 #pragma unroll
   for (int k = 0; k < kStripes; ++k) {
-    const int e = seg + k * 32 * kRun + lane * kRun;
+    const int e = seg + stripe_event(k);
     const int avail = n - e;
     const int64_t in = row * n + (avail > 0 ? e : 0);
     lab[k].load(static_cast<const Label<kWire16>*>(labels_) + in, avail);
@@ -132,27 +115,11 @@ merge_pack_scan_kernel(const void* __restrict__ labels_,
     }
   }
 
-  // Ranks within the warp's segment: one warp scan of the four stripes'
-  // counts packed a byte each (a stripe holds at most 128 events), then
-  // the segment's offset in the row.
-  unsigned packed = 0;
-#pragma unroll
-  for (int k = 0; k < kStripes; ++k) packed |= __popc(flags[k]) << (8 * k);
-  const unsigned incl = warp_inclusive(packed);
-  const unsigned excl = incl - packed;
-  const unsigned sums = __shfl_sync(kFullMask, incl, 31);
+  // Ranks: one warp scan, and in the block body one block scan.
   int run_base[kStripes];
-  int seg_total = 0;
-#pragma unroll
-  for (int k = 0; k < kStripes; ++k) {
-    run_base[k] = seg_total + ((excl >> (8 * k)) & 0xFF);
-    seg_total += (sums >> (8 * k)) & 0xFF;
-  }
-  int total = seg_total, seg_base = 0;
-  if (kBlock)
-    seg_base = __shfl_sync(
-        kFullMask,
-        block_exclusive(lane == 0 ? seg_total : 0, warp_sums, &total), 0);
+  int total;
+  const int seg_base =
+      segment_base<kBlock>(stripe_ranks(flags, run_base), warp_sums, &total);
 
   // Stage the kept events at their slots.
 #pragma unroll

@@ -1,10 +1,10 @@
 // Shared pieces of the spike-router kernels: the bit layout of the LUT
 // entries and wire words (owned by repro_torch.core.routing and
 // repro_torch.core.events), the block-wide rank of 0/1 flags, the scatter
-// tail that applies the rev LUT and the timed lane's queue, the body of
-// one full exchange round that the tiled exchange and exchange_stream
-// kernels share, and the pieces of the single-pass bodies (a thread's run
-// of a row loaded in vector words, warp and block prefix sums).
+// tail that applies the rev LUT and the timed lane's queue, and the pieces
+// of the single-pass bodies (a thread's run of a row loaded in vector
+// words, warp and block prefix sums, the striped rows of the merge_pack
+// and spike_router single-scan bodies).
 #pragma once
 
 #include <cstdint>
@@ -86,51 +86,6 @@ __device__ __forceinline__ void zero_tail(int kept, int capacity,
     if (kTimed) out_t[s] = 0;
   }
 }
-
-// One full exchange round of one frame for one destination: every source's
-// egress frame goes through that source's fwd LUT (bit 15 enables, bits
-// 0..14 are the wire label), is gated by the destination's route enable,
-// merged source-major (arrival order), packed to `capacity` with overflow
-// counted in *dropped, and decoded by the destination's rev LUT `rev`.
-//
-// labels, valid: the frame [n_src, cap_in]; fwd: int32 [n_src, 2^16];
-// en_col: the destination's enable column, entry s at en_col[s * en_stride]
-// (global memory or shared); out_l, out_v: the destination's [capacity]
-// output row.  The block walks the n_src * cap_in merge stream in tiles,
-// ranks the gated events with block_rank and carries the rank across
-// tiles.  Every thread of the block must call it.
-__device__ __forceinline__ void exchange_round(
-    const int32_t* __restrict__ labels, const uint8_t* __restrict__ valid,
-    const int32_t* __restrict__ fwd, const int32_t* __restrict__ rev,
-    const uint8_t* en_col, int en_stride, int n_src, int cap_in, int capacity,
-    int32_t* __restrict__ out_l, uint8_t* __restrict__ out_v,
-    int32_t* __restrict__ dropped, int* warp_counts) {
-  const int n = n_src * cap_in;
-  int offset = 0;  // events ranked in earlier tiles (same in every thread)
-  for (int base = 0; base < n; base += kThreads) {
-    const int e = base + threadIdx.x;
-    bool ok = false;
-    int wire = 0;
-    if (e < n) {
-      const int s = e / cap_in;
-      if (valid[e] && en_col[s * en_stride]) {
-        const int entry = __ldg(fwd + static_cast<int64_t>(s) * kFwdTableSize +
-                                (labels[e] & kChipMask));
-        ok = (entry >> kFwdEnableBit) & 1;
-        wire = entry & kWireMask;
-      }
-    }
-    int tile_total;
-    const int pos = offset + block_rank(ok, warp_counts, &tile_total);
-    if (ok && pos < capacity)
-      emit<false>(pos, wire, 0, rev, Queue{0, 0, 0}, out_l, out_v, nullptr);
-    offset += tile_total;
-  }
-  const int kept = min(offset, capacity);
-  zero_tail<false>(kept, capacity, out_l, out_v, nullptr);
-  if (threadIdx.x == 0) *dropped = offset - kept;
-}
-
 
 // ---------------------------------------------------------------------------
 // Single-pass bodies: each thread loads a run of N consecutive items of a
@@ -236,6 +191,74 @@ __device__ __forceinline__ int block_exclusive(int v, int* warp_sums,
   const int sums = warp_inclusive(mine);
   *total = __shfl_sync(kFullMask, sums, 31);
   return __shfl_sync(kFullMask, sums - mine, warp) + incl - v;
+}
+
+
+// ---------------------------------------------------------------------------
+// Striped rows: the single-scan bodies of merge_pack and spike_router.
+// A warp ranks a segment of S stripes of a row: stripe k holds events
+// [128k, 128k + 128) of the segment, lane l its run of kRun at 128k + 4l,
+// so each load instruction of the warp reads one contiguous stretch (16
+// bytes a lane for int32).  The events before (k, l, j) are the segment's
+// stripes before k, the lanes before l in stripe k, and the run's slots
+// before j: one warp scan over the lanes' S run counts, packed a byte
+// each, gives them all.  A row of several segments takes a warp each and
+// one block scan over the segments' totals.  Kept events are staged in
+// shared memory at their slots and then emitted slot by slot, stores
+// contiguous across threads, empty slots zeroed.
+// ---------------------------------------------------------------------------
+
+constexpr int kRun = 4;                   // consecutive events a lane loads
+
+// The first event of this lane's run k within its warp's segment.
+__device__ __forceinline__ int stripe_event(int k) {
+  return k * 32 * kRun + (threadIdx.x & 31) * kRun;
+}
+
+// Ranks within a warp's segment of S stripes from the lanes' flags
+// (flags[k] bit j: event j of run k is kept): run_base[k] is the number of
+// kept events of the segment before run k of this lane.  Returns the
+// segment's total.
+template <int S>
+__device__ __forceinline__ int stripe_ranks(const unsigned (&flags)[S],
+                                            int (&run_base)[S]) {
+  static_assert(S >= 1 && S <= 4, "a stripe's count takes a byte");
+  unsigned packed = 0;                    // a stripe holds at most 128
+#pragma unroll
+  for (int k = 0; k < S; ++k) packed |= __popc(flags[k]) << (8 * k);
+  const unsigned incl = warp_inclusive(packed);
+  const unsigned excl = incl - packed;
+  const unsigned sums = __shfl_sync(kFullMask, incl, 31);
+  int seg_total = 0;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    run_base[k] = seg_total + ((excl >> (8 * k)) & 0xFF);
+    seg_total += (sums >> (8 * k)) & 0xFF;
+  }
+  return seg_total;
+}
+
+// Where this warp's segment starts in the row's ranks, and the row's total
+// in *total: 0 and the segment's total in the warp body; one block scan
+// over the warps' segment totals (one barrier) in the block body.
+template <bool kBlock>
+__device__ __forceinline__ int segment_base(int seg_total, int* warp_sums,
+                                            int* total) {
+  *total = seg_total;
+  if (!kBlock) return 0;
+  const int lane = threadIdx.x & 31;
+  return __shfl_sync(
+      kFullMask, block_exclusive(lane == 0 ? seg_total : 0, warp_sums, total),
+      0);
+}
+
+// Shared memory a row stages its kept events in: the wire labels (uint16)
+// of slots [0, min(n, capacity)) and, timed, their times.
+__host__ __device__ inline int stage_len(int n, int capacity) {
+  return min(n, capacity);
+}
+__host__ __device__ inline int stage_bytes(int len, bool timed) {
+  return (2 * len + 3) / 4 * 4 + (timed ? 4 * len : 0);
 }
 
 }  // namespace spike_router

@@ -7,8 +7,8 @@
                            route enables → merge → pack → rev LUT) for every
                            destination and batch row — the ``exchange``
                            kernel.
-``fused_exchange_stream``  T such rounds in one launch, each destination's
-                           routing state resident across its T frames — the
+``fused_exchange_stream``  T such rounds in one launch, the routing tables
+                           and enables static across the T frames — the
                            ``exchange_stream`` kernel, the streaming engine
                            of the plain star.
 ``fused_merge_pack``       merge + pack + rev LUT for streams whose fwd LUT
@@ -18,14 +18,16 @@
 
 On CPU tensors each runs its plain version (``ref.py``); on CUDA tensors
 it launches its kernel and counts the launch in its ``launches`` attribute.
-The ``exchange`` and ``merge_pack`` kernels have several bodies, picked
-from the shape by ``exchange_body_for`` and ``merge_pack_body_for`` and
-counted in ``launches_by_path`` too.  This is a dispatch, not a fallback:
-a launch that fails raises.
+Each kernel has several bodies, picked from the shape by
+``route_and_pack_body_for``, ``exchange_body_for`` (the exchange and the
+streaming exchange) and ``merge_pack_body_for``, and counted in
+``launches_by_path`` too.  This is a dispatch, not a fallback: a launch
+outside its body's range, or one that fails, raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -35,7 +37,8 @@ from repro_torch.kernels import INT, PTR, check, launcher, on_card, stream
 from repro_torch.kernels.spike_router import ref as _ref
 
 
-# Bodies of the exchange kernel (csrc/exchange.cu).
+# Bodies of the exchange and exchange_stream kernels
+# (csrc/exchange_bodies.cuh).
 ROW_EVENTS = 4096          # frame items one CTA takes at most (1024 x 4)
 MAX_ROW_SOURCES = 32       # sources of the row body (a lane each)
 ROW_SMEM_LIMIT = 48 * 1024  # shared memory of the row body
@@ -44,13 +47,16 @@ EXCHANGE_BODIES = {"row": 0, "tiled": 1}
 WARP_ROW_MAX = 512         # one warp per row, 16 events a lane
 BLOCK_ROW_MAX = 8192       # one CTA of up to 512 threads per row
 MERGE_PACK_BODIES = {"warp": 0, "block": 1, "tiled": 2}
+# Bodies of the spike_router kernel (csrc/spike_router.cu).
+ROUTE_ROW_MAX = 8192       # one CTA per row, a warp per 128 or 256 events
+ROUTE_AND_PACK_BODIES = {"row": 0, "tiled": 1}
 
 
 def row_smem_bytes(n_src: int, n_dst: int) -> int:
     """Shared memory of one CTA of the exchange kernel's row body at most
-    (``row_smem_bytes`` in ``exchange.cu``): the run starts, the warp sums,
-    the compacted wire labels (uint16) of ``ROW_EVENTS`` items and the
-    enable matrix."""
+    (``row_smem_bytes`` in ``exchange_bodies.cuh``): the run starts, the
+    warp sums, the compacted wire labels (uint16) of ``ROW_EVENTS`` items
+    and the enable matrix."""
     return 4 * (n_src + 1 + 32) + 2 * ROW_EVENTS + n_src * n_dst
 
 
@@ -78,6 +84,52 @@ def merge_pack_body_for(n: int) -> str:
     return "block" if n <= BLOCK_ROW_MAX else "tiled"
 
 
+def route_and_pack_body_for(n: int) -> str:
+    """The body the spike_router kernel runs for rows of ``n`` events:
+    ``"row"`` (one CTA per row, a warp per 128 events, 256 past 4,096, one
+    block scan) up to ``ROUTE_ROW_MAX``, ``"tiled"`` (one CTA walking the
+    row in tiles of 256) beyond."""
+    return "row" if n <= ROUTE_ROW_MAX else "tiled"
+
+
+def row_layout(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """How a kernel reads the rows of ``t`` ([..., n]) in place:
+    ``(inner, outer_stride, inner_stride)`` such that flattened row ``r``
+    starts ``(r // inner) * outer_stride + (r % inner) * inner_stride``
+    elements past ``t.data_ptr()``.  The last dim must be contiguous and
+    the leading dims must fold into at most two (size-1 dims dropped,
+    neighbours merged where one spans the other), as in a contiguous
+    tensor, a row grid broadcast over a batch dim (stride 0) or a
+    transposed pair of leading dims.  None otherwise."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        return None
+    dims: list[tuple[int, int]] = []
+    for size, st in zip(t.shape[:-1], t.stride()[:-1]):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == st * size:
+            dims[-1] = (dims[-1][0] * size, st)
+        else:
+            dims.append((size, st))
+    if not dims:
+        return 1, 0, 0
+    if len(dims) == 1:
+        return dims[0][0], 0, dims[0][1]
+    if len(dims) == 2:
+        return dims[1][0], dims[0][1], dims[1][1]
+    return None
+
+
+def _in_place(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """``t`` and its ``row_layout``; a layout the kernels cannot read in
+    place is copied to a contiguous one first."""
+    layout = row_layout(t)
+    if layout is None:
+        t = t.contiguous()
+        layout = row_layout(t)
+    return t, layout
+
+
 def route_and_pack(labels: torch.Tensor, valid: torch.Tensor,
                    lut: torch.Tensor, *, capacity: int):
     """Egress stage: fwd LUT + enable mask + capacity pack.
@@ -87,7 +139,10 @@ def route_and_pack(labels: torch.Tensor, valid: torch.Tensor,
 
     Returns (out_labels int32[..., capacity], out_valid bool[..., capacity],
              dropped int32[...]).  Events whose LUT entry is disabled are
-    not routed and not counted as dropped.
+    not routed and not counted as dropped.  The kernel reads ``labels``
+    and ``valid`` in place where ``row_layout`` allows (a label grid
+    expanded over the batch, a transposed raster); other layouts are
+    copied first.
     """
     if valid.shape != labels.shape:
         raise ValueError(f"valid shape {tuple(valid.shape)} must match labels "
@@ -99,24 +154,29 @@ def route_and_pack(labels: torch.Tensor, valid: torch.Tensor,
         return _ref.spike_router_ref(labels, valid, lut, capacity=capacity)
     *lead, n = labels.shape
     rows = math.prod(lead)
-    labels = labels.to(torch.int32).contiguous()
-    valid = valid.to(torch.bool).contiguous()
+    labels, lab = _in_place(labels.to(torch.int32))
+    valid, val = _in_place(valid.to(torch.bool))
     lut = lut.to(torch.int32).contiguous()
     dev = labels.device
     out_l = torch.empty((*lead, capacity), dtype=torch.int32, device=dev)
     out_v = torch.empty((*lead, capacity), dtype=torch.bool, device=dev)
     dropped = torch.empty(lead, dtype=torch.int32, device=dev)
+    body = route_and_pack_body_for(n)
     launch = launcher("spike_router", "spike_router_launch",
-                      (PTR,) * 3 + (INT,) * 3 + (PTR,) * 4)
-    check(launch(labels.data_ptr(), valid.data_ptr(), lut.data_ptr(), rows, n,
-                 capacity, out_l.data_ptr(), out_v.data_ptr(),
-                 dropped.data_ptr(), stream()),
-          "spike_router")
+                      (PTR, INT, ctypes.c_int64, ctypes.c_int64) * 2
+                      + (PTR,) + (INT,) * 4 + (PTR,) * 4)
+    check(launch(labels.data_ptr(), *lab, valid.data_ptr(), *val,
+                 lut.data_ptr(), rows, n, capacity,
+                 ROUTE_AND_PACK_BODIES[body], out_l.data_ptr(),
+                 out_v.data_ptr(), dropped.data_ptr(), stream()),
+          f"spike_router ({body})")
     route_and_pack.launches += 1
+    route_and_pack.launches_by_path[body] += 1
     return out_l, out_v, dropped
 
 
 route_and_pack.launches = 0
+route_and_pack.launches_by_path = dict.fromkeys(ROUTE_AND_PACK_BODIES, 0)
 
 
 def _check_round(labels, valid, fwd_luts, rev_luts, enables):
@@ -182,11 +242,13 @@ fused_exchange.launches = 0
 fused_exchange.launches_by_path = dict.fromkeys(EXCHANGE_BODIES, 0)
 
 
-def steps_per_block(n_steps: int, n_dst: int, device: torch.device) -> int:
-    """Timesteps one ``exchange_stream`` block walks: as many as keep about
-    two blocks per SM in the (n_dst, ceil(T / steps)) grid."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_steps, -(-n_steps * n_dst // (2 * sms))))
+def row_groups(n_steps: int, n_dst: int, sms: int) -> int:
+    """CTAs a timestep of the ``exchange_stream`` kernel's row body: its
+    destinations split into this many groups, each CTA loading and
+    compacting the frame itself, as many as keep the grid of
+    ``n_steps x groups`` CTAs within one wave of the card's ``sms`` SMs (at
+    least 1, at most ``n_dst``)."""
+    return max(1, min(n_dst, sms // max(n_steps, 1)))
 
 
 def fused_exchange_stream(labels: torch.Tensor, valid: torch.Tensor,
@@ -198,7 +260,9 @@ def fused_exchange_stream(labels: torch.Tensor, valid: torch.Tensor,
     fwd_luts: int32[n_src, 2^16]; rev_luts: int32[n_dst, 2^15];
     enables: bool[n_src, n_dst], static over the stream (routing tables are
     configuration, not data).  Equal, bit for bit, to T ``fused_exchange``
-    rounds.
+    rounds, and to ``fused_exchange`` with batch = T: the kernel runs the
+    exchange kernel's bodies, picked by ``exchange_body_for``, the row body
+    with ``row_groups`` CTAs a timestep.
 
     Returns (out_labels int32[T, n_dst, capacity],
              out_valid bool[T, n_dst, capacity], dropped int32[T, n_dst]).
@@ -223,19 +287,24 @@ def fused_exchange_stream(labels: torch.Tensor, valid: torch.Tensor,
     out_v = torch.empty((n_steps, n_dst, capacity), dtype=torch.bool,
                         device=dev)
     dropped = torch.empty((n_steps, n_dst), dtype=torch.int32, device=dev)
+    body = exchange_body_for(n_src, cap_in, n_dst)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = row_groups(n_steps, n_dst, sms) if body == "row" else 1
     launch = launcher("exchange_stream", "exchange_stream_launch",
-                      (PTR,) * 5 + (INT,) * 6 + (PTR,) * 4)
+                      (PTR,) * 5 + (INT,) * 7 + (PTR,) * 4)
     check(launch(labels.data_ptr(), valid.data_ptr(), fwd_luts.data_ptr(),
                  rev_luts.data_ptr(), enables.data_ptr(), n_steps, n_src,
-                 cap_in, n_dst, capacity,
-                 steps_per_block(n_steps, n_dst, dev), out_l.data_ptr(),
-                 out_v.data_ptr(), dropped.data_ptr(), stream()),
-          "exchange_stream")
+                 cap_in, n_dst, capacity, EXCHANGE_BODIES[body], groups,
+                 out_l.data_ptr(), out_v.data_ptr(), dropped.data_ptr(),
+                 stream()),
+          f"exchange_stream ({body})")
     fused_exchange_stream.launches += 1
+    fused_exchange_stream.launches_by_path[body] += 1
     return out_l, out_v, dropped
 
 
 fused_exchange_stream.launches = 0
+fused_exchange_stream.launches_by_path = dict.fromkeys(EXCHANGE_BODIES, 0)
 
 
 def fused_merge_pack(labels: torch.Tensor, valid: torch.Tensor,

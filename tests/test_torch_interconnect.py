@@ -455,6 +455,88 @@ def test_pack_unpack_words_match(cap):
 
 
 # ---------------------------------------------------------------------------
+# Body rules and the egress router's in-place rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,body", [(1, "row"), (512, "row"), (513, "row"),
+                                    (4096, "row"), (4097, "row"),
+                                    (8192, "row"), (8193, "tiled")])
+def test_route_and_pack_body_rule(n, body):
+    assert tops.route_and_pack_body_for(n) == body
+
+
+# (n_src, cap_in, n_dst): the streaming exchange takes the exchange
+# kernel's bodies by the exchange kernel's rule.
+@pytest.mark.parametrize("shape,body", [
+    ((12, 64, 12), "row"),                # FULL_BACKPLANE's stream
+    ((16, 256, 12), "row"),               # exactly 4,096 items
+    ((1, 4097, 12), "tiled"),             # 4,097 items
+    ((32, 64, 12), "row"),                # 32 sources, a lane each
+    ((33, 64, 12), "tiled"),              # 33 sources
+    ((12, 64, 3398), "row"),              # enables just within 48 KiB
+    ((12, 64, 3399), "tiled"),            # enables past 48 KiB
+])
+def test_exchange_stream_body_rule(shape, body):
+    assert tops.exchange_body_for(*shape) == body
+
+
+@pytest.mark.parametrize("n_steps,n_dst,groups", [
+    (64, 12, 2),                          # phase 7's stream: 128 CTAs
+    (32, 12, 4), (8, 12, 12),             # shorter streams split further
+    (8, 5, 5),                            # at most a CTA a destination
+    (132, 12, 1), (300, 3, 1),            # the card full at one a timestep
+    (0, 12, 12)])
+def test_exchange_stream_row_groups_fill_one_wave(n_steps, n_dst, groups):
+    assert tops.row_groups(n_steps, n_dst, 132) == groups
+
+
+def _rows_read_in_place(t, layout):
+    """The rows a kernel reads from ``t``'s memory by ``layout``, as a
+    [rows, n] tensor."""
+    inner, outer_stride, inner_stride = layout
+    n = t.shape[-1]
+    r = torch.arange(t.numel() // n)[:, None]
+    at = ((r // inner) * outer_stride + (r % inner) * inner_stride
+          + torch.arange(n)[None, :])
+    memory = torch.as_strided(t, (int(at.max()) + 1,), (1,),
+                              t.storage_offset())
+    return memory[at]
+
+
+def _views():
+    grid = torch.arange(5 * 16, dtype=torch.int32).reshape(5, 16)
+    raster = torch.arange(5 * 3 * 16, dtype=torch.int32).reshape(5, 3, 16)
+    return {
+        "contiguous": (torch.arange(2 * 3 * 4 * 16).reshape(2, 3, 4, 16),
+                       (24, 0, 16)),
+        "grid_expanded_over_batch": (grid.expand(3, 5, 16), (5, 0, 16)),
+        "one_row_expanded": (grid[0].expand(7, 16), (7, 0, 0)),
+        "transposed_raster": (raster.transpose(0, 1), (5, 16, 48)),
+        "rows_sliced": (torch.arange(6 * 40).reshape(6, 40)[:, 3:19],
+                        (6, 0, 40)),
+        "size_one_dims": (grid[None, :, None], (5, 0, 16)),
+        "one_row": (grid[1], (1, 0, 0)),
+        "three_strided_dims": (torch.zeros(4, 3, 2, 16).permute(2, 1, 0, 3),
+                               None),
+        "last_dim_strided": (grid[:, ::2], None),
+    }
+
+
+@pytest.mark.parametrize("case", list(_views()))
+def test_row_layout_reads_the_rows_in_place(case):
+    """The rule by which the spike_router kernel reads labels and flags in
+    place: a label grid expanded over the batch (phase 7's call), a
+    transposed raster, sliced rows; a layout it cannot fold into two
+    strides is copied by the wrapper."""
+    t, layout = _views()[case]
+    assert tops.row_layout(t) == layout
+    if layout is not None:
+        assert torch.equal(_rows_read_in_place(t, layout),
+                           t.reshape(-1, t.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
 # Dispatch: the CPU never launches; the kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -492,18 +574,105 @@ def test_spike_router_kernel_matches_plain(cuda_device, lead, n, cap, frac):
         assert torch.equal(r, g.cpu())
 
 
+# (lead, n, capacity, body): every body of the spike_router kernel and its
+# edges (a warp per 128 events up to 4,096, per 256 beyond), labels
+# anywhere in int32.
+ROUTER_BODY_CASES = {
+    "row_main_shape": ((8, 120), 512, 32, "row"),
+    "row_shorter_than_a_run": ((5,), 3, 8, "row"),
+    "row_odd_length": ((7,), 37, 12, "row"),
+    "row_capacity_0": ((6,), 200, 0, "row"),
+    "row_capacity_beyond_n": ((4,), 256, 512, "row"),
+    "row_513": ((3,), 513, 40, "row"),
+    "row_ragged": ((2, 2), 3001, 300, "row"),
+    "row_4096": ((2,), 4096, 700, "row"),
+    "row_two_stripes": ((3,), 4097, 300, "row"),
+    "row_longest": ((2,), 8192, 8192, "row"),
+    "row_capacity_0_long": ((2,), 6000, 0, "row"),
+    "tiled": ((2,), 8193, 300, "tiled"),
+    "tiled_capacity_beyond_n": ((1,), 9000, 10000, "tiled"),
+}
+
+
+def _route(tensors, cap):
+    """route_and_pack on the given tensors, with the body its launch took."""
+    before = dict(tops.route_and_pack.launches_by_path)
+    got = tops.route_and_pack(*tensors, capacity=cap)
+    bodies = [k for k, v in tops.route_and_pack.launches_by_path.items()
+              if v != before[k]]
+    return got, bodies
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_steps,n,cap_in,cap,p", [
-    (64, 12, 64, 256, 0.05), (7, 5, 24, 16, 0.6), (300, 3, 8, 4, 0.9)])
+@pytest.mark.parametrize("case", list(ROUTER_BODY_CASES))
+def test_spike_router_bodies_match_plain(cuda_device, case):
+    lead, n, cap, body = ROUTER_BODY_CASES[case]
+    assert tops.route_and_pack_body_for(n) == body
+    rng = np.random.default_rng(72 + n)
+    lut = _fwd_lut(rng, enable_frac=0.8)
+    labels = rng.integers(-(1 << 31), (1 << 31) - 1, (*lead, n),
+                          dtype=np.int64).astype(np.int32)
+    labels[..., ::2] &= 4095                  # a share hits mapped entries
+    valid = rng.random((*lead, n)) < 0.6
+    cpu = [torch.from_numpy(a) for a in (labels, valid, lut)]
+    ref = tref.spike_router_ref(*cpu, capacity=cap)
+    got, bodies = _route([t.to(cuda_device) for t in cpu], cap)
+    torch.cuda.synchronize()
+    assert bodies == [body]
+    for r, g in zip(ref, got, strict=True):
+        assert torch.equal(r, g.cpu())
+    if cap == 0:                 # every enabled valid event is dropped
+        enabled = valid & ((lut[labels & 0xFFFF] >> 15) & 1).astype(bool)
+        np.testing.assert_array_equal(got[2].cpu().numpy(), enabled.sum(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,n", [("row", 512), ("row", 5000),
+                                    ("tiled", 8200)])
+def test_spike_router_expanded_view_equals_contiguous_copy(cuda_device, body,
+                                                           n):
+    """Phase 7's call: the egress label grid expanded over the batch
+    (stride 0) and a transposed raster are read in place and give what
+    their contiguous copies give."""
+    rng = np.random.default_rng(73)
+    lut = torch.from_numpy(_fwd_lut(rng)).to(cuda_device)
+    grid = torch.from_numpy(rng.integers(0, 8192, (12, n)).astype(
+        np.int32)).to(cuda_device)
+    raster = torch.from_numpy(rng.random((12, 4, n)) < 0.3).to(cuda_device)
+    labels, valid = grid.expand(4, 12, n), raster.transpose(0, 1)
+    assert tops.row_layout(labels) == (12, 0, n)
+    assert tops.row_layout(valid) == (12, n, 4 * n)
+    got, bodies = _route((labels, valid, lut), 40)
+    want, _ = _route((labels.contiguous(), valid.contiguous(), lut), 40)
+    torch.cuda.synchronize()
+    assert bodies == [body]
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    ref = tref.spike_router_ref(labels.cpu(), valid.cpu(), lut.cpu(),
+                                capacity=40)
+    for r, g in zip(ref, got, strict=True):
+        assert torch.equal(r, g.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps,n,cap_in,cap,p,body", [
+    (64, 12, 64, 256, 0.05, "row"), (7, 5, 24, 16, 0.6, "row"),
+    (300, 3, 8, 4, 0.9, "row"), (4, 16, 256, 300, 0.3, "row"),
+    (5, 4, 20, 0, 0.5, "row"), (3, 6, 50, 400, 0.9, "row"),
+    (3, 1, 4097, 512, 0.2, "tiled"), (6, 33, 16, 40, 0.5, "tiled")])
 def test_exchange_stream_kernel_matches_plain_and_loop(cuda_device, n_steps,
-                                                       n, cap_in, cap, p):
+                                                       n, cap_in, cap, p,
+                                                       body):
     arrays = [torch.from_numpy(a) for a in
               _stream_inputs(71, n_steps, n, cap_in, p)]
     ref = tref.exchange_stream_ref(*arrays, capacity=cap)
     card = [a.to(cuda_device) for a in arrays]
+    before = dict(tops.fused_exchange_stream.launches_by_path)
     got = tops.fused_exchange_stream(*card, capacity=cap)
     loop = tops.fused_exchange(*card, capacity=cap)    # batch = T
     torch.cuda.synchronize()
+    assert tops.fused_exchange_stream.launches_by_path == {
+        **before, body: before[body] + 1}
     for r, g, lp in zip(ref, got, loop, strict=True):
         assert torch.equal(r, g.cpu())
         assert torch.equal(g, lp)
