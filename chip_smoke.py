@@ -23,7 +23,9 @@ Phases, each reported on its own lines:
    prints its launch floor: the graph-replay time of an empty kernel with
    the same grid, block and shared memory (``*_floor_launch`` in the
    kernels' sources); cases reach every body of the exchange, merge_pack,
-   egress-router and streaming kernels.
+   egress-router and streaming kernels.  One merge_pack case takes the
+   inputs of a masked step of phase 9 (EXT_4CASE_96CHIP, whole segments
+   invalid).
 3. The SNN main path at full width (512 neurons x 256 rows per chip, batch
    8, 64 steps): ``run_stream`` on FULL_BACKPLANE (untimed gather: the
    exchange kernel), EXT_4CASE_96CHIP (timed, gather and routed) and
@@ -60,6 +62,18 @@ Phases, each reported on its own lines:
    and ``lif_step_ref`` start from the plain trajectory's state and agree
    within 1e-6, spikes equal except where the plain membrane is within
    1e-6 of the threshold.
+9. The degraded-mode stream at phase 3's width and drives: ``run_stream``
+   with fault schedules in mask and reroute modes on EXT_4CASE_96CHIP
+   (timed; gather in both modes, routed in mask mode) and FULL_BACKPLANE
+   (untimed gather), each run's launch counts checked (an overlay step
+   never takes the exchange fast path, a healthy reroute segment does);
+   events lost exactly in the steps where a dead edge without a route
+   carries traffic in phase 3's healthy run, rerouted exactly where a
+   live detour does, and spikes equal to the healthy run's through the
+   first losing step; steps/s beside phase 3's, a profiler pass over 8
+   faulted steps; then phase 4's card-against-CPU check on
+   EXT_4CASE_96CHIP in each fault mode, the exchange teacher-forced with
+   each step's overlay or degraded plan.
 
 Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -157,6 +171,30 @@ MAIN_PATHS = (("FULL_BACKPLANE", "gather", False),
 CHECK_PATHS = (("FULL_BACKPLANE", "gather", False),
                ("EXT_4CASE_96CHIP", "gather", True),
                ("PROJECTED_120CHIP", "routed", True))
+# Phase 9's fault schedules over STEPS = 64: backplane 0's uplink dead for
+# steps 16-47 and leaf 3's downlink from step 32 on (EXT_4CASE_96CHIP), leaf
+# 0's uplink dead for steps 16-47 (FULL_BACKPLANE); the first scaled to
+# steps 4-12 of CHECK_STEPS = 16 for the card-against-CPU check.
+EXT_FAULTS = (fablib.FaultEvent(1, 0, kill_step=16, restore_step=48),
+              fablib.FaultEvent(0, 3, kill_step=32, kind="downlink"))
+FULL_FAULTS = (fablib.FaultEvent(0, 0, kill_step=16, restore_step=48),)
+CHECK_FAULTS = (fablib.FaultEvent(1, 0, kill_step=4, restore_step=12),
+                fablib.FaultEvent(0, 3, kill_step=8, kind="downlink"))
+# Phase 9's runs: (scenario, exchange mode, timed, fault mode, schedule,
+# launches expected over STEPS steps).  A step with an overlay never takes
+# the exchange fast path; a reroute segment with no dead edge does.
+FAULT_PATHS = (
+    ("EXT_4CASE_96CHIP", "gather", True, "mask", EXT_FAULTS,
+     {"merge_pack": STEPS, "exchange": 0}),
+    ("EXT_4CASE_96CHIP", "gather", True, "reroute", EXT_FAULTS,
+     {"merge_pack": STEPS, "exchange": 0}),
+    ("EXT_4CASE_96CHIP", "routed", True, "mask", EXT_FAULTS,
+     {"merge_pack": STEPS, "exchange": 0}),
+    ("FULL_BACKPLANE", "gather", False, "mask", FULL_FAULTS,
+     {"merge_pack": STEPS, "exchange": 0}),
+    ("FULL_BACKPLANE", "gather", False, "reroute", FULL_FAULTS,
+     {"merge_pack": STEPS // 2, "exchange": STEPS // 2}),
+)
 # Phase 7 and the streaming/egress cases of phase 2: the egress frame width
 # of each scenario (analysis.scenarios.CASES' cap_in), the catalogue's
 # occupancy, and the Node-FPGA egress pack of the PROJECTED_120CHIP rasters.
@@ -384,6 +422,53 @@ def stream_floor_ms(labels, n_dst: int, cap: int, body: str) -> float:
                                   "exchange_stream floor"))
 
 
+def recorded_merge(fn):
+    """Runs ``fn`` and returns the (args, kwargs) of the one
+    ``fused_merge_pack`` call that ``fabric_route_step`` made in it."""
+    real, seen = fablib.fused_merge_pack, []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    fablib.fused_merge_pack = record
+    try:
+        fn()
+    finally:
+        fablib.fused_merge_pack = real
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} merge_pack calls, expected 1")
+    return seen[0]
+
+
+def dead_segments(valid, seg_lens) -> int:
+    """Merge segments with no valid slot, over all rows."""
+    parts = torch.split(valid.reshape(-1, valid.shape[-1]), list(seg_lens),
+                        dim=-1)
+    return sum(int((~p.any(dim=-1)).sum()) for p in parts)
+
+
+def masked_merge_inputs(gen):
+    """The merge_pack inputs of a masked mask-mode step of EXT_4CASE_96CHIP
+    (step 40 of phase 9's schedule: backplane 0's uplink and leaf 3's
+    downlink masked), timed, on random rasters at the catalogue occupancy;
+    with the count of wholly invalid segments, masked and healthy."""
+    cfg, params, plan = scenarios.engine_network("EXT_4CASE_96CHIP",
+                                                 device=DEV)
+    spikes = (torch.rand((cfg.n_chips, BATCH, cfg.chip.n_neurons),
+                         generator=gen, device=DEV) < OCC).to(torch.float32)
+    health = stream.health_at(
+        fablib.health_schedule(plan, EXT_FAULTS, STEPS, device=DEV), 40)
+    timing = timed_wire(cfg.latency)
+    args, kw = recorded_merge(lambda: stream.exchange_spikes(
+        params, spikes, cfg, plan, timing, health))
+    h_args, h_kw = recorded_merge(lambda: stream.exchange_spikes(
+        params, spikes, cfg, plan, timing))
+    dead = (dead_segments(args[1], kw["seg_lens"]),
+            dead_segments(h_args[1], h_kw["seg_lens"]))
+    return (args, dict(kw)), (h_args, dict(h_kw)), dead
+
+
 def phase2(results: dict) -> None:
     gen = torch.Generator(device=DEV).manual_seed(2)
     plans = {name: scenarios.engine_network(name, device="cpu")[::2]
@@ -441,6 +526,37 @@ def phase2(results: dict) -> None:
               flush=True)
         if name == "ext_gather_timed":
             main_case = (args, kw, ms, floor, b_ms, b_by)
+    # Phase 9's traffic: a masked mask-mode step, whole segments invalid.
+    (args, kw), (h_args, h_kw), (dead, healthy_dead) = masked_merge_inputs(
+        gen)
+    if dead <= healthy_dead:
+        raise AssertionError(f"merge_pack masked step: {dead} wholly invalid "
+                             f"segments, healthy {healthy_dead}")
+    got, body = run_counted(lambda: ops.fused_merge_pack(*args, **kw),
+                            ops.fused_merge_pack.launches_by_path)
+    want = ref.merge_pack_ref(*args, **kw)
+    torch.cuda.synchronize()
+    e = max_abs_err(got, want)
+    if e:
+        raise AssertionError(f"merge_pack masked mask-mode step: kernel != "
+                             f"plain (max abs err {e})")
+    err = max(err, e)
+    rows, n = args[0].shape[0] * args[0].shape[1], args[0].shape[-1]
+    # In turns with the healthy step of the same rasters.
+    times = [graph_ms(lambda: ops.fused_merge_pack(*a, **k))
+             for a, k in ((args, kw), (h_args, h_kw), (h_args, h_kw),
+                          (args, kw))]
+    floor = merge_pack_floor_ms(rows, n, kw["capacity"], True, body)
+    b_ms, b_by = bound(*merge_cost(args, kw, got))
+    print(f"phase 2: merge_pack ext_masked_mask_mode_step: rows {rows} x {n} "
+          f"events -> cap {kw['capacity']}, {dead} of "
+          f"{rows * len(kw['seg_lens'])} segments wholly invalid (healthy "
+          f"step {healthy_dead}), dropped {int(got[-1].sum())}, exact; "
+          f"{body} body: kernel {times[0] * 1e3:.2f} / "
+          f"{times[3] * 1e3:.2f} us (the healthy step of the same rasters, "
+          f"in turns: {times[1] * 1e3:.2f} / {times[2] * 1e3:.2f} us), "
+          f"launch floor {floor * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+          f"({b_by})", flush=True)
     args, kw, ms, floor, b_ms, b_by = main_case
     results["merge_pack"] = dict(
         max_abs_err=err, ms=ms, floor_ms=floor,
@@ -1039,7 +1155,11 @@ def phase2_lm(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase3(launches: dict, gpu: str) -> None:
+def phase3(launches: dict, gpu: str) -> dict:
+    """Returns each run's steps/s and spikes, keyed by (scenario, exchange
+    mode, timed): the healthy runs phase 9 holds its faulted ones
+    against."""
+    healthy = {}
     for name, mode, timed in MAIN_PATHS:
         cfg, params, plan = scenarios.engine_network(name, device=DEV)
         plan = fablib.with_exchange_mode(plan, mode)
@@ -1101,6 +1221,8 @@ def phase3(launches: dict, gpu: str) -> None:
               + device_breakdown(lambda: stream.run_stream(
                   params, state, drives[:PROFILE_STEPS], cfg, fabric=plan,
                   timed=timed, device=DEV)) + f" [{gpu}]", flush=True)
+        healthy[(name, mode, timed)] = (STEPS / wall, out.spikes)
+    return healthy
 
 
 def snn_paths() -> dict:
@@ -1165,52 +1287,76 @@ def device_breakdown(fn, per: int = PROFILE_STEPS, unit: str = "step",
 
 def phase4() -> None:
     for name, mode, timed in CHECK_PATHS:
-        nets = {}
-        for side, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
-            # The same seed gives the same network on both devices.
-            cfg, params, plan = scenarios.engine_network(name, device=dev)
-            # Dyadic weights and drives: the synapse product is exact in
-            # float32 in any sum order.
-            params = params._replace(chips=params.chips._replace(
-                w_scale=torch.full_like(params.chips.w_scale, 2.0 ** -8)))
-            nets[side] = (params, fablib.with_exchange_mode(plan, mode), dev)
-        gen = torch.Generator().manual_seed(4)
-        shape = (CHECK_STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows)
-        drives = ((torch.rand(shape, generator=gen) < 0.1)
-                  * torch.randint(4, 20, shape, generator=gen) / 16)
-        state = netlib.init_state(cfg, BATCH, device="cpu")
-        runs = {side: stream.run_stream(p, state, drives, cfg, fabric=pl,
-                                        timed=timed, device=dev)
-                for side, (p, pl, dev) in nets.items()}
-        cpu_params, cpu_plan, _ = nets["cpu"]
+        print(f"phase 4: {card_vs_cpu(name, mode, timed)}", flush=True)
 
-        def margin_at(t):
-            before = (stream.run_stream(cpu_params, state, drives[:t], cfg,
-                                        fabric=cpu_plan, device="cpu").state
-                      if t else state)
-            return parity.spike_margin(cpu_params, before, drives[t], cfg)
 
-        report = parity.compare_streams(runs["cpu"], runs["card"], margin_at)
-        # Teacher forcing: both devices route the CPU run's own spikes.
-        spikes = runs["cpu"].spikes.transpose(0, 1)
-        timing = timed_wire(cfg.latency) if timed else None
-        on_cpu = stream.exchange_spikes(cpu_params, spikes, cfg, cpu_plan,
-                                        timing)
-        on_card = stream.exchange_spikes(nets["card"][0], spikes.to(DEV), cfg,
-                                         nets["card"][1], timing)
+def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
+                fault_mode: str = "mask") -> str:
+    """The port on the card against the port on the CPU over CHECK_STEPS
+    steps (dyadic weights and drives; the integer outputs equal up to
+    near-threshold flips), then the exchange stage under teacher forcing
+    with each step's plan and overlay, bit for bit.  Returns the report."""
+    nets = {}
+    for side, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        # The same seed gives the same network on both devices.
+        cfg, params, plan = scenarios.engine_network(name, device=dev)
+        # Dyadic weights and drives: the synapse product is exact in
+        # float32 in any sum order.
+        params = params._replace(chips=params.chips._replace(
+            w_scale=torch.full_like(params.chips.w_scale, 2.0 ** -8)))
+        nets[side] = (params, fablib.with_exchange_mode(plan, mode), dev)
+    gen = torch.Generator().manual_seed(4)
+    shape = (CHECK_STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows)
+    drives = ((torch.rand(shape, generator=gen) < 0.1)
+              * torch.randint(4, 20, shape, generator=gen) / 16)
+    state = netlib.init_state(cfg, BATCH, device="cpu")
+    kw = dict(faults=faults, fault_mode=fault_mode)
+    runs = {side: stream.run_stream(p, state, drives, cfg, fabric=pl,
+                                    timed=timed, device=dev, **kw)
+            for side, (p, pl, dev) in nets.items()}
+    cpu_params, cpu_plan, _ = nets["cpu"]
+
+    def margin_at(t):
+        before = (stream.run_stream(cpu_params, state, drives[:t], cfg,
+                                    fabric=cpu_plan, device="cpu",
+                                    **kw).state
+                  if t else state)
+        return parity.spike_margin(cpu_params, before, drives[t], cfg)
+
+    report = parity.compare_streams(runs["cpu"], runs["card"], margin_at)
+    # Teacher forcing: both devices route the CPU run's own spikes, step by
+    # step with that step's plan and overlay.
+    timing = timed_wire(cfg.latency) if timed else None
+    forced = {}
+    for side, (p, pl, dev) in nets.items():
+        plans, sched = stream.fault_segments(pl, faults, fault_mode,
+                                             CHECK_STEPS, dev)
+        forced[side] = [stream.exchange_spikes(
+            p, runs["cpu"].spikes[t].to(dev), cfg, plans[t], timing,
+            None if sched is None else stream.health_at(sched, t))
+            for t in range(CHECK_STEPS)]
+    for t, (on_cpu, on_card) in enumerate(zip(forced["cpu"],
+                                              forced["card"])):
         for field, a, b in zip(("drives", "dropped", "uplink", "latency_ns",
                                 "latency_valid", "unroutable", "rerouted"),
                                on_cpu, on_card):
-            parity.assert_equal(f"{name} teacher-forced {field}", a, b)
-        spk = int(runs["cpu"].spikes.sum())
-        if spk == 0:
-            raise AssertionError(f"{name}: no spikes to compare")
-        print(f"phase 4: {name}/{mode}/{'timed' if timed else 'untimed'}: "
-              f"card == CPU over {CHECK_STEPS} steps ({spk} spikes, "
-              f"{len(report['flips'])} near-threshold flips "
-              f"{report['flips'][:5]}, final state max err "
-              f"{report['state_max_err']}); teacher-forced exchange "
-              f"bit-exact", flush=True)
+            parity.assert_equal(f"{name} step {t} teacher-forced {field}",
+                                a, b)
+    spk = int(runs["cpu"].spikes.sum())
+    if spk == 0:
+        raise AssertionError(f"{name}: no spikes to compare")
+    lost = int(runs["cpu"].unroutable.sum())
+    if faults and not lost:
+        raise AssertionError(f"{name}/{fault_mode}: the faults lost nothing")
+    what = ""
+    if faults is not None:
+        what = (f"/{fault_mode} faults ({lost} lost, "
+                f"{int(runs['cpu'].rerouted.sum())} rerouted)")
+    return (f"{name}/{mode}/{'timed' if timed else 'untimed'}{what}: card "
+            f"== CPU over {CHECK_STEPS} steps ({spk} spikes, "
+            f"{len(report['flips'])} near-threshold flips "
+            f"{report['flips'][:5]}, final state max err "
+            f"{report['state_max_err']}); teacher-forced exchange bit-exact")
 
 
 # ---------------------------------------------------------------------------
@@ -1544,6 +1690,119 @@ def phase8(launches: dict, gpu: str) -> None:
           f"{wall:.2f} s with the checks [{gpu}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the degraded-mode stream
+# ---------------------------------------------------------------------------
+
+
+def edge_leaves(plan, level: int, edge: int) -> slice:
+    """The leaves under an edge of ``level``."""
+    gsize = plan.n_nodes // plan.edge_counts[level]
+    return slice(edge * gsize, (edge + 1) * gsize)
+
+
+def expected_fault_traffic(plan, faults, fault_mode, spikes):
+    """Per step, from the healthy run's spikes ``[T, n_chips, batch,
+    n_neurons]``: whether events are lost (a dead edge with no surviving
+    route carries traffic: spikes under a dead uplink, spikes outside a dead
+    downlink's subtree, as every chip sends to every other here) and
+    whether events are detoured (a dead uplink with a live detour in the
+    step's reroute plan carries traffic).  Returns two bool lists."""
+    per_chip = spikes.sum(dim=(2, 3)).cpu()               # [T, n_chips]
+    plans, _ = stream.fault_segments(plan, faults, fault_mode,
+                                     spikes.shape[0], "cpu")
+    lost, detoured = [], []
+    for t, plan_t in enumerate(plans):
+        lose = detour = False
+        for level, edge, kind in fablib.dead_edges_at(faults, t):
+            under = per_chip[t, edge_leaves(plan, level, edge)].sum()
+            if kind == "downlink":
+                lose |= bool(per_chip[t].sum() > under)
+                continue
+            live = (fault_mode == "reroute"
+                    and plan_t.levels[level].detour[edge] >= 0)
+            detour |= live and bool(under > 0)
+            lose |= not live and bool(under > 0)
+        lost.append(lose)
+        detoured.append(detour)
+    return lost, detoured
+
+
+def phase9(launches: dict, gpu: str, healthy: dict) -> None:
+    for name, mode, timed, fault_mode, faults, want in FAULT_PATHS:
+        cfg, params, plan = scenarios.engine_network(name, device=DEV)
+        plan = fablib.with_exchange_mode(plan, mode)
+        state = netlib.init_state(cfg, BATCH, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(3)    # phase 3's drives
+        drives = (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
+                             generator=gen, device=DEV)
+                  < DRIVE_P).to(torch.float32)
+
+        def run(d=drives, f=faults):
+            return stream.run_stream(params, state, d, cfg, fabric=plan,
+                                     timed=timed, faults=f,
+                                     fault_mode=fault_mode, device=DEV)
+
+        run(), run(f=None)                                  # warm-up
+        torch.cuda.synchronize()
+        # The healthy run of the same inputs in turns with the faulted one.
+        rates = {None: [], faults: []}
+        for f in (None, faults, faults, None):
+            reset_snn_counts()
+            t0 = time.perf_counter()
+            o = run(f=f)
+            torch.cuda.synchronize()
+            rates[f].append(STEPS / (time.perf_counter() - t0))
+            if f is not None:
+                out, paths = o, snn_paths()
+                counts = {"merge_pack": ops.fused_merge_pack.launches,
+                          "exchange": ops.fused_exchange.launches}
+        what = f"{name}/{mode}/{'timed' if timed else 'untimed'}/{fault_mode}"
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{want}")
+        for k, v in counts.items():
+            launches[k] += v
+
+        healthy_rate, healthy_spikes = healthy[(name, mode, timed)]
+        want_lost, want_detoured = expected_fault_traffic(
+            plan, faults, fault_mode, healthy_spikes)
+        lost = out.unroutable.sum(dim=(1, 2)).tolist()
+        detoured = out.rerouted.sum(dim=(1, 2)).tolist()
+        for t in range(STEPS):
+            for field, n, expect in (("lost", lost[t], want_lost[t]),
+                                     ("rerouted", detoured[t],
+                                      want_detoured[t])):
+                if (n > 0) != expect:
+                    raise AssertionError(
+                        f"{what}: step {t} {field} {n} events, expected "
+                        f"{'some' if expect else 'none'}")
+        # The run equals the healthy one through the first step that loses
+        # events: until then the same events arrive (a detour delivers
+        # them unchanged).
+        first_loss = want_lost.index(True)
+        parity.assert_equal(f"{what} spikes through step {first_loss}",
+                            healthy_spikes[:first_loss + 1],
+                            out.spikes[:first_loss + 1])
+        window = [t for t in range(STEPS) if fablib.dead_edges_at(faults, t)]
+        print(f"phase 9: {what}: faults "
+              f"{[dataclasses.astuple(f) for f in faults]}; {STEPS} steps at "
+              f"{rates[faults][0]:.1f} / {rates[faults][1]:.1f} steps/s "
+              f"(the healthy run in turns: {rates[None][0]:.1f} / "
+              f"{rates[None][1]:.1f}; phase 3's: {healthy_rate:.1f}), lost "
+              f"{sum(lost)} events in steps {window[0]}-{window[-1]} (none "
+              f"outside), rerouted {sum(detoured)}, spikes equal to the "
+              f"healthy run's through step {first_loss}; launches {counts}, "
+              f"by body {paths} [{gpu}]", flush=True)
+        local = fablib.shift_faults(faults, 16, PROFILE_STEPS)
+        print(f"phase 9: {what}: " + device_breakdown(
+            lambda: run(drives[16:16 + PROFILE_STEPS], local)) + f" [{gpu}]",
+            flush=True)
+    for fault_mode in ("mask", "reroute"):
+        print("phase 9: " + card_vs_cpu("EXT_4CASE_96CHIP", "gather", True,
+                                        CHECK_FAULTS, fault_mode), flush=True)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -1564,12 +1823,13 @@ def main() -> None:
     phase2_interconnect(results)
     phase2_lm(results)
     launches = {k: 0 for k in KERNEL_SOURCES}
-    phase3(launches, gpu)
+    healthy = phase3(launches, gpu)
     phase4()
     phase5(launches, gpu)
     phase6()
     phase7(launches, gpu)
     phase8(launches, gpu)
+    phase9(launches, gpu, healthy)
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

@@ -29,7 +29,7 @@ ARCH_NAMES = list(_ARCH_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name in _UNPORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported yet: ROADMAP.md queue 1 item 11 (LM "
+            f"{name!r} is not ported yet: ROADMAP.md queue 1 item 10 (LM "
             f"workload harness) lists the families still to port")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: "

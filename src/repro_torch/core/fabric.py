@@ -12,9 +12,9 @@ Port of the stacked part of ``src/repro/core/fabric.py``.
   merge segment layout.
 * ``fabric_route_step`` — one exchange round for all leaves (and any
   leading batch rows) on one device.  The plain one-level untimed star runs
-  the ``exchange`` kernel; every other plan runs fwd LUT, cascaded uplink
-  packs and the nearest-first merge in PyTorch, then the ``merge_pack``
-  kernel as the merge tail.
+  the ``exchange`` kernel; every other plan, and every round with a health
+  overlay, runs fwd LUT, cascaded uplink packs and the nearest-first merge
+  in PyTorch, then the ``merge_pack`` kernel as the merge tail.
 
 Hop-graph semantics (paper §III/§V): leaves are the ``prod(fan_in)``
 Node-FPGA endpoints.  A tier-``i`` entity (tier 0 = leaf, tier 1 =
@@ -28,19 +28,28 @@ enables (own subtree excluded above level 1); then it packs to the ingress
 above level 1 adds its fixed extra plus the uplink lane's wait of the
 event's rank in the entity stream.
 
-The sharded executor (``torch.distributed``), dynamic health overlays and
-fault schedules are queued in ROADMAP.md.
+Degraded mode: static per-edge health is compiled into the plan (with
+extension-lane detours); a dynamic ``FabricHealth`` overlay masks edges per
+round on top of it without a recompile and without rerouting, and
+``FaultEvent`` schedules expand into per-step overlays
+(``health_schedule``) or into the constant-health segments that
+``run_stream``'s reroute mode recompiles (``fault_boundaries``,
+``dead_edges_at``).
+
+The sharded executor (``torch.distributed``) is queued in ROADMAP.md
+(queue 1, item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, NamedTuple
+from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import routing
 from repro_torch.core.events import (EventFrame, make_frame, pack_wire16,
                                      unpack_wire16)
@@ -177,6 +186,16 @@ class FabricPlan:
     @property
     def degraded(self) -> bool:
         return any(lvl.degraded for lvl in self.levels)
+
+    @property
+    def edge_counts(self) -> tuple[int, ...]:
+        """Per-level uplink/downlink edge counts (children crossing level
+        i)."""
+        out, gsize = [], 1
+        for lvl in self.levels:
+            out.append(self.n_nodes // gsize)
+            gsize *= lvl.fan_in
+        return tuple(out)
 
     def merge_layout(self, cap_in: int) -> tuple[tuple[int, ...], ...]:
         """Per-level merge segment lengths for egress frames of ``cap_in``."""
@@ -383,6 +402,151 @@ def degrade_spec(spec: FabricSpec,
 
 
 # ---------------------------------------------------------------------------
+# Degraded mode: dynamic health overlays and fault schedules
+# ---------------------------------------------------------------------------
+
+
+class FabricHealth(NamedTuple):
+    """Dynamic per-edge health overlay of one exchange round: a bool tensor
+    per level for uplinks and downlinks (``plan.edge_counts`` long, on the
+    frames' device; ``None`` means that level is fully healthy).  Unlike
+    the static health compiled into the plan it costs no recompile, but it
+    cannot reroute: an edge masked here loses its traffic as
+    ``unroutable`` even where the static plan gave it a detour.  The
+    tensors of ``health_schedule`` carry a leading step axis."""
+
+    uplink: tuple
+    downlink: tuple
+
+
+def full_health(plan: FabricPlan, device=None) -> FabricHealth:
+    """All-healthy overlay matching ``plan`` (the identity element), on the
+    card unless ``device`` says otherwise."""
+    device = resolve_device(device)
+
+    def ones():
+        return tuple(torch.ones((c,), dtype=torch.bool, device=device)
+                     for c in plan.edge_counts)
+
+    return FabricHealth(uplink=ones(), downlink=ones())
+
+
+def _check_health(plan: FabricPlan, health: FabricHealth,
+                  device: torch.device) -> None:
+    counts = plan.edge_counts
+    for side in ("uplink", "downlink"):
+        vecs = getattr(health, side)
+        if len(vecs) != plan.n_levels:
+            raise ValueError(f"health.{side} has {len(vecs)} levels but the "
+                             f"plan wires {plan.n_levels}")
+        for i, vec in enumerate(vecs):
+            if vec is None:
+                continue
+            if vec.shape[-1] != counts[i]:
+                raise ValueError(
+                    f"health.{side}[{i}] covers {vec.shape[-1]} edges but "
+                    f"level {i} crosses {counts[i]}")
+            if vec.device != device:
+                raise ValueError(f"health.{side}[{i}] lies on {vec.device} "
+                                 f"but the frames on {device}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """One scheduled link fault: the edge ``(level, edge)`` dies at
+    ``kill_step`` (inclusive) and, unless ``restore_step`` is ``None``
+    (permanent), comes back at ``restore_step`` (exclusive).  ``kind``
+    picks the direction."""
+
+    level: int
+    edge: int
+    kill_step: int
+    restore_step: int | None = None
+    kind: str = "uplink"
+
+
+def _check_faults(plan: FabricPlan, faults: Sequence[FaultEvent]) -> None:
+    counts = plan.edge_counts
+    for ev in faults:
+        if ev.kind not in ("uplink", "downlink"):
+            raise ValueError(f"unknown fault kind: {ev.kind!r}")
+        if not 0 <= ev.level < plan.n_levels:
+            raise ValueError(f"fault level {ev.level} outside the "
+                             f"{plan.n_levels}-level plan")
+        if not 0 <= ev.edge < counts[ev.level]:
+            raise ValueError(f"fault edge {ev.edge} outside level "
+                             f"{ev.level}'s {counts[ev.level]} edges")
+        if ev.restore_step is not None and ev.restore_step <= ev.kill_step:
+            raise ValueError(f"fault restore_step {ev.restore_step} must be "
+                             f"> kill_step {ev.kill_step}")
+
+
+def health_schedule(plan: FabricPlan, faults: Sequence[FaultEvent],
+                    n_steps: int, device=None) -> FabricHealth:
+    """Expand a fault schedule into per-step overlays: ``bool[n_steps,
+    n_edges]`` per level (``None`` for untouched levels), built on the host
+    and uploaded once, to the card unless ``device`` says otherwise."""
+    _check_faults(plan, faults)
+    device = resolve_device(device)
+    counts = plan.edge_counts
+    masks = {side: [None] * plan.n_levels for side in ("uplink", "downlink")}
+    for ev in faults:
+        tbl = masks[ev.kind]
+        if tbl[ev.level] is None:
+            tbl[ev.level] = np.ones((n_steps, counts[ev.level]), bool)
+        stop = n_steps if ev.restore_step is None else min(ev.restore_step,
+                                                           n_steps)
+        tbl[ev.level][ev.kill_step:stop, ev.edge] = False
+
+    def upload(tbl):
+        return tuple(None if m is None else torch.from_numpy(m).to(device)
+                     for m in tbl)
+
+    return FabricHealth(uplink=upload(masks["uplink"]),
+                        downlink=upload(masks["downlink"]))
+
+
+def dead_edges_at(faults: Sequence[FaultEvent], step: int
+                  ) -> tuple[tuple[int, int, str], ...]:
+    """The ``(level, edge, kind)`` triples dead at ``step``, sorted."""
+    dead = {(ev.level, ev.edge, ev.kind) for ev in faults
+            if ev.kill_step <= step
+            and (ev.restore_step is None or step < ev.restore_step)}
+    return tuple(sorted(dead))
+
+
+def fault_boundaries(faults: Sequence[FaultEvent], n_steps: int
+                     ) -> tuple[int, ...]:
+    """Segment starts where the dead-edge set may change (0 always
+    included): the recompile points of ``run_stream``'s reroute mode."""
+    marks = {0}
+    for ev in faults:
+        marks.add(ev.kill_step)
+        if ev.restore_step is not None:
+            marks.add(ev.restore_step)
+    return tuple(sorted(m for m in marks if 0 <= m < n_steps))
+
+
+def shift_faults(faults: Sequence[FaultEvent], start: int, n_steps: int
+                 ) -> tuple[FaultEvent, ...]:
+    """Rebase a whole-run fault schedule onto the window ``[start, start +
+    n_steps)``: events outside it are dropped, a kill before it clamps to
+    local step 0, and a restore at or past its end becomes permanent."""
+    end = start + n_steps
+    out = []
+    for ev in faults:
+        if ev.kill_step >= end:
+            continue
+        if ev.restore_step is not None and ev.restore_step <= start:
+            continue
+        restore = (None if ev.restore_step is None or ev.restore_step >= end
+                   else ev.restore_step - start)
+        out.append(dataclasses.replace(
+            ev, kill_step=max(ev.kill_step - start, 0), restore_step=restore))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # Static plan arrays on the device
 # ---------------------------------------------------------------------------
 
@@ -470,21 +634,31 @@ def _egress_times(frame_times, ev, timing: TimedWire) -> torch.Tensor:
     return torch.where(ev, t, torch.zeros_like(t))
 
 
-def _flow_masks(lvl: LevelPlan, device):
-    """Static uplink masks of one level: ``flow_ok`` (traffic survives) and
-    ``detoured`` (travels a detour), bool[n_ent]; ``(None, None)`` when
-    the level's uplinks are healthy."""
+def _flow_masks(lvl: LevelPlan, dyn_up, device):
+    """Static and dynamic uplink masks of one level combined: ``flow_ok``
+    (traffic survives: alive or detoured, and not masked by the overlay
+    ``dyn_up``) and ``live_detour`` (travels a detour), bool[n_ent];
+    ``(None, None)`` when both are healthy.  ``live_detour`` is ``None`` on
+    a statically healthy level, where no edge has a detour."""
     if lvl.uplink_ok is None:
-        return None, None
-    detoured = ~lvl.uplink_ok & (lvl.detour >= 0)
-    return _const(lvl.routable, device), _const(detoured, device)
+        return dyn_up, None
+    routable = _const(lvl.routable, device)
+    detoured = _const(~lvl.uplink_ok & (lvl.detour >= 0), device)
+    if dyn_up is None:
+        return routable, detoured
+    return routable & dyn_up, detoured & dyn_up
 
 
-def _down_mask(lvl: LevelPlan, ent: np.ndarray, device):
-    """Per-leaf downlink health of one level, or ``None`` when healthy."""
-    if lvl.downlink_ok is None:
-        return None
-    return _const(lvl.downlink_ok[ent], device)
+def _down_mask(lvl: LevelPlan, dyn_down, ent: np.ndarray, ent_t, device):
+    """Per-leaf downlink health of one level, static and dynamic combined
+    (``ent``/``ent_t``: each leaf's child entity here), or ``None`` when
+    both are healthy."""
+    ok = (None if lvl.downlink_ok is None
+          else _const(lvl.downlink_ok[ent], device))
+    if dyn_down is not None:
+        dyn = dyn_down[ent_t]
+        ok = dyn if ok is None else ok & dyn
+    return ok
 
 
 def _detour_penalty(lvl: LevelPlan, timing: TimedWire, valid) -> torch.Tensor:
@@ -517,29 +691,31 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
       timing: timed datapath (``latency.timed_wire``): ``frames.times`` are
         int32 departures and the ingress ``times`` arrivals; ``None`` keeps
         the untimed wire (ingress times are zeros).
-      health: dynamic health overlays are not ported yet (ROADMAP.md queue
-        1, item 7).
+      health: dynamic per-edge overlay (``FabricHealth``), one bool
+        ``[n_edges]`` vector per level shared by every batch row, on the
+        frames' device.  It masks flows on top of the plan's static health
+        and never reroutes: a masked edge loses its traffic as
+        ``unroutable`` (compile a statically degraded plan to detour).  A
+        round with an overlay always runs the merge engine.
 
     Returns:
       (ingress frames [..., n_nodes, capacity], ExchangeDrops of
       int32[..., n_nodes]).
     """
-    if health is not None:
-        raise NotImplementedError(
-            "dynamic health overlays are not ported yet (ROADMAP.md queue 1, "
-            "item 7); compile a statically degraded plan with degrade_spec")
     levels = plan.levels
     *lead, n, cap_in = frames.labels.shape
     if n != plan.n_nodes:
         raise ValueError(f"frames carry {n} leaf streams but the plan wires "
                          f"{plan.n_nodes}")
     dev = frames.labels.device
+    if health is not None:
+        _check_health(plan, health, dev)
     routed = plan.exchange_mode == "routed"
 
     # The plain 1-level untimed star is one exchange-kernel round.
     if (len(levels) == 1 and timing is None
             and levels[0].link_capacity is None and not plan.degraded
-            and not routed):
+            and health is None and not routed):
         out_l, out_v, dropped = fused_exchange(
             frames.labels, frames.valid, state.fwd_tables, state.rev_tables,
             _const(levels[0].enables, dev), capacity=plan.capacity)
@@ -581,22 +757,27 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
         ent = leaf // gsize                    # each leaf's entity here
         ent_t = _const(ent, dev)
 
-        # Static uplink health gates the entity streams before they join
-        # this merge and before they cascade upward: detoured streams keep
-        # their slot but pay the detour on the timed lane; streams with no
-        # surviving route are masked and counted unroutable.
-        flow_ok, detoured = _flow_masks(lvl, dev)
+        # Uplink health, static and dynamic, gates the entity streams before
+        # they join this merge and before they cascade upward: detoured
+        # streams keep their slot but pay the detour on the timed lane;
+        # streams with no surviving route are masked and counted
+        # unroutable.
+        flow_ok, live_detour = _flow_masks(
+            lvl, None if health is None else health.uplink[i], dev)
         if flow_ok is not None:
             counts = cur_v.sum(dim=-1, dtype=torch.int32)
-            if timing is not None:
+            if timing is not None and live_detour is not None:
                 pen = _detour_penalty(lvl, timing, cur_v)
-                cur_t = torch.where(detoured[:, None] & cur_v, cur_t + pen,
-                                    cur_t)
+                cur_t = torch.where(live_detour[:, None] & cur_v,
+                                    cur_t + pen, cur_t)
             cur_v = cur_v & flow_ok[:, None]
             unroutable = unroutable + torch.where(flow_ok, 0, counts)[:, ent_t]
-            rerouted = rerouted + torch.where(detoured, counts, 0)[:, ent_t]
+            if live_detour is not None:
+                rerouted = (rerouted
+                            + torch.where(live_detour, counts, 0)[:, ent_t])
         # Downlink health accumulates along each leaf's descent path.
-        d_ok = _down_mask(lvl, ent, dev)
+        d_ok = _down_mask(lvl, None if health is None else health.downlink[i],
+                          ent, ent_t, dev)
         if d_ok is not None:
             recv_ok = d_ok if recv_ok is None else recv_ok & d_ok
 

@@ -7,7 +7,7 @@ Three entry modes share one parameter set:
                   ``cache_index``.
 
 MLA (DeepSeek-V2) and cross-attention are still to port (ROADMAP.md queue 1
-item 11).
+item 10).
 """
 
 from __future__ import annotations

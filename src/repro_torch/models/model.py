@@ -5,7 +5,7 @@ layers with one shared attention + MLP block applied every ``attn_every``
 layers) and a plain stack of GQA + MLP layers.  Where the JAX package scans
 over a stacked layer axis, the port loops over it in Python; parameters
 and caches keep the stacked layout.  Training, MoE, MLA, RWKV6 and the
-encoder-decoder stack are still to port (ROADMAP.md queue 1 item 11).
+encoder-decoder stack are still to port (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ Mamba2 reduces to the diagonal-decay linear recurrence of
 
 (a scalar decay per head, broadcast over the state dim).  Decode carries
 (conv state, recurrence state): O(1) per token.  RWKV6 is still to port
-(ROADMAP.md queue 1 item 11).
+(ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Decoder layer bodies: the Mamba2 cell (zamba2's backbone) and the plain
 GQA + MLP block.  MoE, MLA, RWKV6 and cross-attention layers are still to
-port (ROADMAP.md queue 1 item 11)."""
+port (ROADMAP.md queue 1 item 10)."""
 
 from __future__ import annotations
 

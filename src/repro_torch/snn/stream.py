@@ -11,7 +11,10 @@ The reference scans this body with ``lax.scan``; the port runs a Python
 loop over steps, each step covering all batch rows.  The delay line is a
 ring buffer on the port's own copy of ``state.inflight``, written in place
 (slot ``t % delay``), and rolled back to shift order on exit, so outputs
-and final state match the reference's.
+and final state match the reference's.  A fault schedule degrades the
+exchange step by step (a health overlay per step, ``fault_mode="mask"``)
+or segment by segment (a degraded plan per constant-health segment,
+``"reroute"``), as the reference's segmented scans do.
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ def egress_label_grid(cfg: netlib.NetworkConfig, device) -> torch.Tensor:
 
 def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
                     cfg: netlib.NetworkConfig, plan: fablib.FabricPlan,
-                    timing: latlib.TimedWire | None = None):
+                    timing: latlib.TimedWire | None = None,
+                    health: fablib.FabricHealth | None = None):
     """The exchange stage of one step for every batch row at once: egress
     tap → ``fabric_route_step`` → ingress decode.
 
@@ -93,6 +97,7 @@ def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
     chips first and the neurons last works: extra middle dims are more
     independent rows).  Every spike of the window departs at its open (time
     0 on the timed lane), so ingress times are the wire latencies.
+    ``health``: the step's dynamic overlay, shared by every row.
 
     Returns (row drives f32[n_chips, ..., n_rows], dropped, uplink,
     latency_ns, latency_valid, unroutable, rerouted), each with the chips
@@ -104,7 +109,7 @@ def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
     times = None if timing is None else torch.zeros_like(labels)
     frames, egress_drop = make_frame(labels, times, valid, cfg.capacity)
     ingress, drops = fablib.fabric_route_step(params.router, frames, plan,
-                                              timing=timing)
+                                              timing=timing, health=health)
     drives = chiplib.labels_to_rows(ingress.labels, ingress.valid,
                                     params.row_of_label, cfg.chip.n_rows)
     if timing is None:
@@ -121,12 +126,48 @@ def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
         drops.unroutable, drops.rerouted))
 
 
+def fault_segments(plan: fablib.FabricPlan, faults, fault_mode: str,
+                   n_steps: int, device):
+    """The fault schedule as the plan of every step and, in mask mode, the
+    per-step overlays: ``(plans, schedule or None)``.
+
+    Mask mode keeps ``plan`` and expands the schedule with
+    ``health_schedule``.  Reroute mode compiles one statically degraded
+    plan per constant-health segment (``fault_boundaries``), or keeps
+    ``plan`` where no edge is dead, so a healthy segment takes the exchange
+    fast path.  No faults, or an empty schedule, is the healthy run.
+    """
+    if not faults:
+        return [plan] * n_steps, None
+    if fault_mode == "mask":
+        return [plan] * n_steps, fablib.health_schedule(plan, faults, n_steps,
+                                                        device=device)
+    starts = fablib.fault_boundaries(faults, n_steps)
+    plans = []
+    for k, start in enumerate(starts):
+        end = starts[k + 1] if k + 1 < len(starts) else n_steps
+        dead = fablib.dead_edges_at(faults, start)
+        seg = (fablib.compile_fabric(fablib.degrade_spec(plan.spec, dead))
+               if dead else plan)
+        plans += [seg] * (end - start)
+    return plans, None
+
+
+def health_at(sched: fablib.FabricHealth, t: int) -> fablib.FabricHealth:
+    """Step ``t``'s overlay of a ``health_schedule`` (views, no copy)."""
+    def pick(side):
+        return tuple(None if m is None else m[t] for m in side)
+
+    return fablib.FabricHealth(uplink=pick(sched.uplink),
+                               downlink=pick(sched.downlink))
+
+
 def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                ext_drives: torch.Tensor, cfg: netlib.NetworkConfig, *,
                mode: str = "event", topology: str = "star",
                fabric: fablib.FabricPlan | None = None, timed: bool = False,
-               overlap: bool = False, faults=None, plasticity=None,
-               slot_mask=None, device=None) -> StreamOut:
+               overlap: bool = False, faults=None, fault_mode: str = "mask",
+               plasticity=None, slot_mask=None, device=None) -> StreamOut:
     """Run the closed-loop emulation over ``ext_drives``.
 
     Args:
@@ -141,8 +182,19 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
       timed: thread the int32 timestamp lane through the exchange
         (``latency.timed_wire(cfg.latency)``) and report per-event wire
         latencies; the functional outputs equal the untimed run's.
-      overlap, faults, plasticity, slot_mask: not ported yet (ROADMAP.md
-        queue 1, items 6 and 7); they raise ``NotImplementedError``.
+      faults: a schedule of ``fabric.FaultEvent`` link faults injected into
+        the stream; the per-step lost and detoured counts land in
+        ``StreamOut.unroutable`` / ``StreamOut.rerouted``.  An empty
+        schedule is the healthy run.
+      fault_mode: ``"mask"`` passes each step's ``health_schedule`` overlay
+        to the exchange on the one plan (dead edges lose their traffic as
+        unroutable, nothing detours; every step runs the merge engine).
+        ``"reroute"`` splits the run at ``fabric.fault_boundaries`` and
+        compiles one statically degraded plan per constant-health segment,
+        so dead uplinks detour over a sibling's spare extension lanes; the
+        chip state, delay line and step count cross the segments untouched.
+      overlap, plasticity, slot_mask: not ported yet (ROADMAP.md queue 1,
+        items 1 and 4); they raise ``NotImplementedError``.
       device: where the run happens (default CUDA; raises if absent).
         Inputs are moved there.
 
@@ -150,21 +202,25 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
       ``StreamOut`` with the chips-first per-step outputs and the final
       state (delay line in shift order).
     """
+    if mode not in ("event", "dense"):
+        raise ValueError(f"unknown mode: {mode!r}")
+    if topology not in ("star", "hierarchical"):
+        raise ValueError(f"unknown topology: {topology!r}")
+    if fault_mode not in ("mask", "reroute"):
+        raise ValueError(f"unknown fault_mode: {fault_mode!r}")
+    if faults is not None and mode != "event":
+        raise ValueError("fault injection requires the event datapath (the "
+                         "dense surrogate has no links to kill)")
     if mode == "dense":
         raise NotImplementedError("dense mode is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9)")
-    if mode != "event":
-        raise ValueError(f"unknown mode: {mode!r}")
+                                  "(ROADMAP.md queue 1, item 8)")
     if topology == "hierarchical":
         raise NotImplementedError("the hierarchical topology flag is not "
-                                  "ported yet (ROADMAP.md queue 1, item 7); "
+                                  "ported yet (ROADMAP.md queue 1, item 1); "
                                   "pass a compiled 2-level plan as fabric=")
-    if topology != "star":
-        raise ValueError(f"unknown topology: {topology!r}")
-    for name, asked, item in (("overlap", overlap, 7),
-                              ("faults", bool(faults), 7),
-                              ("plasticity", plasticity is not None, 6),
-                              ("slot_mask", slot_mask is not None, 6)):
+    for name, asked, item in (("overlap", overlap, 1),
+                              ("plasticity", plasticity is not None, 4),
+                              ("slot_mask", slot_mask is not None, 4)):
         if asked:
             raise NotImplementedError(f"run_stream({name}=...) is not ported "
                                       f"yet (ROADMAP.md queue 1, item {item})")
@@ -190,6 +246,7 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
     n_steps = ext_drives.shape[0]
     delay = inflight.shape[0]
     timing = latlib.timed_wire(cfg.latency) if timed else None
+    plans, sched = fault_segments(plan, faults, fault_mode, n_steps, device)
 
     steps = []
     for t in range(n_steps):
@@ -197,7 +254,9 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         # Ingress: the slot written `delay` steps ago.
         drive = ext_drives[t] + inflight[slot]
         chips, spikes = chiplib.chip_step(params.chips, chips, drive, cfg.chip)
-        routed, *stats = exchange_spikes(params, spikes, cfg, plan, timing)
+        health = None if sched is None else health_at(sched, t)
+        routed, *stats = exchange_spikes(params, spikes, cfg, plans[t],
+                                         timing, health)
         # Egress: the consumed slot is the one due `delay` steps out.
         inflight[slot] = routed
         steps.append((spikes, *stats))

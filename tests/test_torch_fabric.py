@@ -168,11 +168,18 @@ def test_fabric_route_step_bit_exact(name, mode, timed):
 
 
 def test_dynamic_health_not_ported():
+    """Dynamic health overlays are ported (``tests/test_torch_faults.py``
+    holds them against the reference); what is left of the old refusal is
+    the validation of a malformed overlay, which raises before any work."""
     _, got = _scenario("FULL_BACKPLANE")
     frames = TFrame(*(torch.zeros((12, 4), dtype=d)
                       for d in (torch.int32, torch.int32, torch.bool)))
     router = TRouter(torch.zeros((12, 1 << 16), dtype=torch.int32),
                      torch.zeros((12, 1 << 15), dtype=torch.int32),
                      torch.ones((12, 12), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfab.fabric_route_step(router, frames, got.plan, health=object())
+    for health, match in (
+            (tfab.FabricHealth((None, None), (None, None)), "2 levels"),
+            (tfab.FabricHealth((torch.ones(11, dtype=torch.bool),), (None,)),
+             "covers 11 edges")):
+        with pytest.raises(ValueError, match=match):
+            tfab.fabric_route_step(router, frames, got.plan, health=health)

@@ -222,12 +222,10 @@ def _jax_exchange(params, spikes, cfg, plan, timing):
     return jax.jit(jax.vmap(per_batch))(spikes)
 
 
-@pytest.mark.parametrize("name,mode,timed", [
-    ("FULL_BACKPLANE", "gather", False),
-    ("EXT_4CASE_96CHIP", "gather", True),
-    ("EXT_4CASE_96CHIP", "routed", False),
-    ("PROJECTED_120CHIP", "routed", True),
-])
+@pytest.mark.parametrize("timed", [False, True])
+@pytest.mark.parametrize("mode", ["gather", "routed"])
+@pytest.mark.parametrize("name", ["FULL_BACKPLANE", "PROJECTED_120CHIP",
+                                  "EXT_4CASE_96CHIP"])
 def test_run_stream_matches_reference(name, mode, timed):
     cfg_j, params_j, plan_j = jsc.engine_network(
         name, chip=jchip.ChipConfig(**SMALL_CHIP))
@@ -383,7 +381,7 @@ def test_latency_stats_match_reference():
                                      torch.zeros(lat.shape, dtype=bool))
 
 
-@pytest.mark.parametrize("kwargs", [dict(overlap=True), dict(faults=(object(),)),
+@pytest.mark.parametrize("kwargs", [dict(overlap=True),
                                     dict(plasticity=object()),
                                     dict(slot_mask=object()),
                                     dict(mode="dense"),
