@@ -74,6 +74,19 @@ Phases, each reported on its own lines:
    faulted steps; then phase 4's card-against-CPU check on
    EXT_4CASE_96CHIP in each fault mode, the exchange teacher-forced with
    each step's overlay or degraded plan.
+10. The rest of ``run_stream``'s event path at phase 3's width and drives:
+   PROJECTED_120CHIP (timed) through ``topology="hierarchical"``, equal bit
+   for bit to the ``fabric=`` run of the catalogue plan and to phase 3's
+   spikes; ``overlap=True`` against ``overlap=False`` (0.25 µs steps, a
+   4-deep delay line) on FULL_BACKPLANE untimed (the exchange kernel) and
+   EXT_4CASE_96CHIP timed (merge_pack), in turns; 64 teacher-forced
+   FULL_BACKPLANE rounds with ``engine="merge"`` (merge_pack's ``block``
+   body) against ``"auto"`` (the exchange kernel); ``use_fused=False``
+   (no kernel) against the fused run on EXT_4CASE_96CHIP timed, in turns;
+   ``pick_exchange_mode`` over 64 EXT_4CASE_96CHIP rounds; the per-step
+   ``run_event_steps`` against ``run_event``; each run's launches by body
+   checked, and phase 4's card-against-CPU check on a 16-step overlap +
+   hierarchical-flag run.
 
 Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -107,6 +120,7 @@ from repro_torch.analysis import scenarios  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregator as agg  # noqa: E402
 from repro_torch.core import fabric as fablib  # noqa: E402
+from repro_torch.core import routing  # noqa: E402
 from repro_torch.core.events import make_frame  # noqa: E402
 from repro_torch.kernels import INT, PTR, _build, check  # noqa: E402
 from repro_torch.kernels import launcher  # noqa: E402
@@ -1291,15 +1305,20 @@ def phase4() -> None:
 
 
 def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
-                fault_mode: str = "mask") -> str:
+                fault_mode: str = "mask", dt_us: float | None = None,
+                flag: bool = False, overlap: bool = False) -> str:
     """The port on the card against the port on the CPU over CHECK_STEPS
     steps (dyadic weights and drives; the integer outputs equal up to
     near-threshold flips), then the exchange stage under teacher forcing
-    with each step's plan and overlay, bit for bit.  Returns the report."""
+    with each step's plan and overlay, bit for bit.  ``dt_us`` overrides
+    the step, ``flag`` runs the 2-level plan through the hierarchical
+    topology flag instead of ``fabric=``.  Returns the report."""
     nets = {}
     for side, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
         # The same seed gives the same network on both devices.
         cfg, params, plan = scenarios.engine_network(name, device=dev)
+        if dt_us is not None:
+            cfg = dataclasses.replace(cfg, dt_us=dt_us)
         # Dyadic weights and drives: the synapse product is exact in
         # float32 in any sum order.
         params = params._replace(chips=params.chips._replace(
@@ -1310,15 +1329,19 @@ def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
     drives = ((torch.rand(shape, generator=gen) < 0.1)
               * torch.randint(4, 20, shape, generator=gen) / 16)
     state = netlib.init_state(cfg, BATCH, device="cpu")
-    kw = dict(faults=faults, fault_mode=fault_mode)
-    runs = {side: stream.run_stream(p, state, drives, cfg, fabric=pl,
-                                    timed=timed, device=dev, **kw)
+    kw = dict(faults=faults, fault_mode=fault_mode, overlap=overlap)
+
+    def topology(pl, dev):
+        return hierarchical_flag(pl, dev) if flag else dict(fabric=pl)
+
+    runs = {side: stream.run_stream(p, state, drives, cfg, timed=timed,
+                                    device=dev, **topology(pl, dev), **kw)
             for side, (p, pl, dev) in nets.items()}
     cpu_params, cpu_plan, _ = nets["cpu"]
 
     def margin_at(t):
         before = (stream.run_stream(cpu_params, state, drives[:t], cfg,
-                                    fabric=cpu_plan, device="cpu",
+                                    device="cpu", **topology(cpu_plan, "cpu"),
                                     **kw).state
                   if t else state)
         return parity.spike_margin(cpu_params, before, drives[t], cfg)
@@ -1352,6 +1375,10 @@ def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
     if faults is not None:
         what = (f"/{fault_mode} faults ({lost} lost, "
                 f"{int(runs['cpu'].rerouted.sum())} rerouted)")
+    if flag:
+        what += "/hierarchical flag"
+    if overlap:
+        what += f"/overlap (delay {cfg.delay_steps})"
     return (f"{name}/{mode}/{'timed' if timed else 'untimed'}{what}: card "
             f"== CPU over {CHECK_STEPS} steps ({spk} spikes, "
             f"{len(report['flips'])} near-threshold flips "
@@ -1803,6 +1830,283 @@ def phase9(launches: dict, gpu: str, healthy: dict) -> None:
                                         CHECK_FAULTS, fault_mode), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the rest of run_stream's event path
+# ---------------------------------------------------------------------------
+
+# Overlap needs delay_steps >= 2: 0.25 us steps give 4 against the 950 ns
+# chip-to-chip latency (the catalogue's 1 us steps give 1).
+OVERLAP_DT_US = 0.25
+STREAM_FIELDS = ("spikes", "dropped", "uplink_dropped", "latency_ns",
+                 "latency_valid", "unroutable", "rerouted")
+
+
+def hierarchical_flag(plan, device) -> dict:
+    """``run_stream``'s topology-flag arguments that compile the 2-level
+    ``plan`` of the catalogue: all-to-all enables (no self-loop inside a
+    backplane) and its two level capacities."""
+    (per_pod, link), (n_pods, pod) = ((lvl.fan_in, lvl.link_capacity)
+                                      for lvl in plan.levels)
+    return dict(topology="hierarchical", n_pods=n_pods,
+                intra_enables=routing.full_route_enables(per_pod,
+                                                         device=device),
+                inter_enables=torch.ones((n_pods, n_pods), dtype=torch.bool,
+                                         device=device),
+                link_capacity=link, pod_capacity=pod)
+
+
+def main_drives(cfg) -> torch.Tensor:
+    """Phase 3's external drives for ``cfg``'s network."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    return (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
+                       generator=gen, device=DEV) < DRIVE_P).to(torch.float32)
+
+
+def leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in leaves(t)]
+
+
+def assert_same_stream(what: str, a, b) -> None:
+    """Two ``StreamOut``s equal bit for bit, final state included."""
+    for f in STREAM_FIELDS:
+        parity.assert_equal(f"{what} {f}", getattr(a, f), getattr(b, f))
+    for x, y in zip(leaves(a.state), leaves(b.state), strict=True):
+        parity.assert_equal(f"{what} state", x, y)
+
+
+def counted(fn):
+    """``fn()`` with the SNN kernels' counts set to 0 just before: returns
+    (its result, wall seconds to the card's end, launches by body)."""
+    torch.cuda.synchronize()
+    reset_snn_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v for k, v in snn_paths().items() if v}
+
+
+def expect_bodies(what: str, paths: dict, want: dict,
+                  launches: dict) -> None:
+    """Fails unless the run launched exactly ``want`` by body; adds its
+    launches to the main path's counts."""
+    if paths != want:
+        raise AssertionError(f"{what}: launches by body {paths}, expected "
+                             f"{want}")
+    for k, v in paths.items():
+        launches[k.split()[0]] += v
+
+
+def host_syncs(fn) -> int:
+    """How many synchronising CUDA operations ``fn()`` issues (CUDA's sync
+    debug mode, counted as its warnings; explicit synchronisation is not
+    counted)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def in_turns(runs: dict, launches: dict, want: dict,
+             rounds: int = 1) -> tuple[dict, dict]:
+    """Runs ``runs`` (name -> fn) as A B B A, ``rounds`` times over, each
+    run checked to launch ``want[name]`` by body.  Returns (last output,
+    steps/s list in run order) by name."""
+    outs, rates = {}, {k: [] for k in runs}
+    a, b = runs
+    for name in (a, b, b, a) * rounds:
+        outs[name], wall, paths = counted(runs[name])
+        expect_bodies(name, paths, want[name], launches)
+        rates[name].append(STEPS / wall)
+    return outs, rates
+
+
+def phase10(launches: dict, gpu: str, healthy: dict) -> None:
+    # (a) The hierarchical flag compiles PROJECTED_120CHIP's plan.
+    name = "PROJECTED_120CHIP"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    state = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = main_drives(cfg)
+    flag = hierarchical_flag(plan, DEV)
+    outs, rates = in_turns(
+        {"flag": lambda: stream.run_stream(params, state, drives, cfg,
+                                           timed=True, device=DEV, **flag),
+         "fabric": lambda: stream.run_stream(params, state, drives, cfg,
+                                             fabric=plan, timed=True,
+                                             device=DEV)},
+        launches, {"flag": {"merge_pack warp": STEPS},
+                   "fabric": {"merge_pack warp": STEPS}})
+    assert_same_stream("hierarchical flag against fabric=", outs["fabric"],
+                       outs["flag"])
+    parity.assert_equal("hierarchical flag against phase 3 spikes",
+                        healthy[(name, "gather", True)][1],
+                        outs["flag"].spikes)
+    print(f"phase 10: {name}/timed through topology=\"hierarchical\" "
+          f"(n_pods {flag['n_pods']}, link_capacity "
+          f"{flag['link_capacity']}, pod_capacity {flag['pod_capacity']}): "
+          f"equal bit for bit to the fabric= run and to phase 3's spikes; "
+          f"{STEPS} merge_pack warp launches; steps/s flag "
+          f"{rates['flag'][0]:.1f} / {rates['flag'][1]:.1f}, fabric= "
+          f"{rates['fabric'][0]:.1f} / {rates['fabric'][1]:.1f} [{gpu}]",
+          flush=True)
+
+    # (b) overlap against the plain loop, at a 4-deep delay line.
+    for name, timed, want in (
+            ("FULL_BACKPLANE", False, {"exchange row": STEPS}),
+            ("EXT_4CASE_96CHIP", True, {"merge_pack warp": STEPS})):
+        cfg, params, plan = scenarios.engine_network(name, device=DEV)
+        cfg = dataclasses.replace(cfg, dt_us=OVERLAP_DT_US)
+        state = netlib.init_state(cfg, BATCH, device=DEV)
+        drives = main_drives(cfg)
+
+        def run(overlap, p=params, s=state, d=drives, c=cfg, pl=plan,
+                tm=timed):
+            return stream.run_stream(p, s, d, c, fabric=pl, timed=tm,
+                                     overlap=overlap, device=DEV)
+
+        outs, rates = in_turns(
+            {"plain": lambda: run(False), "overlap": lambda: run(True)},
+            launches, {"plain": want, "overlap": want}, rounds=3)
+        what = f"{name}/{'timed' if timed else 'untimed'}"
+        assert_same_stream(f"{what} overlap against plain", outs["plain"],
+                           outs["overlap"])
+        spikes = int(outs["plain"].spikes.sum())
+        print(f"phase 10: {what} overlap=True (delay {cfg.delay_steps}): "
+              f"equal bit for bit to overlap=False ({spikes} spikes); "
+              f"launches {want} each; steps/s "
+              f"in turns (plain, overlap, overlap, plain) x 3: plain "
+              f"{', '.join(f'{r:.1f}' for r in rates['plain'])}; overlap "
+              f"{', '.join(f'{r:.1f}' for r in rates['overlap'])} [{gpu}]",
+              flush=True)
+        for overlap in (False, True):
+            def few(o=overlap, p=params, s=state, d=drives, c=cfg, pl=plan,
+                    tm=timed):
+                return stream.run_stream(p, s, d[:PROFILE_STEPS], c,
+                                         fabric=pl, timed=tm, overlap=o,
+                                         device=DEV)
+
+            syncs = host_syncs(few)
+            print(f"phase 10: {what} overlap={overlap}: {syncs} host "
+                  f"synchronisations in {PROFILE_STEPS} steps; "
+                  + device_breakdown(few) + f" [{gpu}]", flush=True)
+
+    # (c) The merge engine against the exchange kernel, teacher-forced on
+    # phase 3's FULL_BACKPLANE spikes.
+    name = "FULL_BACKPLANE"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    valid = healthy[(name, "gather", False)][1].transpose(1, 2) > 0.5
+    labels = stream.egress_label_grid(cfg, DEV).expand(valid.shape)
+    frames, _ = make_frame(labels, None, valid, cfg.capacity)
+
+    def rounds(engine, n=STEPS, fr=frames, p=params, pl=plan):
+        return [leaves(fablib.fabric_route_step(
+            p.router, type(fr)(*(x[t] for x in fr)), pl, engine=engine))
+            for t in range(n)]
+
+    outs, rates = in_turns(
+        {"auto": lambda: rounds("auto"), "merge": lambda: rounds("merge")},
+        launches, {"auto": {"exchange row": STEPS},
+                   "merge": {"merge_pack block": STEPS}})
+    for t, (a, b) in enumerate(zip(outs["auto"], outs["merge"])):
+        for f, x, y in zip(("labels", "times", "valid",
+                            *fablib.ExchangeDrops._fields), a, b,
+                           strict=True):
+            parity.assert_equal(f"round {t} engine merge vs auto {f}", x, y)
+    print(f"phase 10: {name} {STEPS} teacher-forced rounds ({BATCH} x "
+          f"{cfg.n_chips} x {cfg.capacity} egress, "
+          f"{int(frames.valid.sum())} events): engine=\"merge\" equal bit "
+          f"for bit to \"auto\"; us/round auto "
+          f"{1e6 / rates['auto'][0]:.1f} / {1e6 / rates['auto'][1]:.1f} "
+          f"(exchange row {STEPS}), merge {1e6 / rates['merge'][0]:.1f} / "
+          f"{1e6 / rates['merge'][1]:.1f} (merge_pack block {STEPS}) "
+          f"[{gpu}]", flush=True)
+    for engine in ("auto", "merge"):
+        print(f"phase 10: {name} engine=\"{engine}\": " + device_breakdown(
+            lambda e=engine: rounds(e, PROFILE_STEPS), unit="round")
+            + f" [{gpu}]", flush=True)
+
+    # (d) use_fused=False (the plain composition, no kernel) against the
+    # fused run.
+    name = "EXT_4CASE_96CHIP"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    state = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = main_drives(cfg)
+
+    def run(fused, p=params, s=state, d=drives, c=cfg, pl=plan):
+        return stream.run_stream(p, s, d, c, fabric=pl, timed=True,
+                                 use_fused=fused, device=DEV)
+
+    outs, rates = in_turns(
+        {"fused": lambda: run(True), "unfused": lambda: run(False)},
+        launches, {"fused": {"merge_pack warp": STEPS}, "unfused": {}})
+    assert_same_stream(f"{name} use_fused=False against fused",
+                       outs["fused"], outs["unfused"])
+    print(f"phase 10: {name}/timed use_fused=False: equal bit for bit to "
+          f"the fused run, no kernel launched; steps/s fused "
+          f"{rates['fused'][0]:.1f} / {rates['fused'][1]:.1f}, unfused "
+          f"{rates['unfused'][0]:.1f} / {rates['unfused'][1]:.1f} [{gpu}]",
+          flush=True)
+
+    # (e) pick_exchange_mode over 64 rounds of phase 3's EXT_4CASE_96CHIP
+    # timed spikes.
+    valid = healthy[(name, "gather", True)][1].transpose(1, 2) > 0.5
+    labels = stream.egress_label_grid(cfg, DEV).expand(valid.shape)
+    frames, _ = make_frame(labels, torch.zeros_like(labels), valid,
+                           cfg.capacity)
+    trials = 3
+    (picked, seconds), _, paths = counted(lambda: fablib.pick_exchange_mode(
+        params.router, frames, plan, timing=timed_wire(cfg.latency),
+        trials=trials))
+    expect_bodies("pick_exchange_mode", paths,
+                  {"merge_pack warp": 2 * (1 + trials) * STEPS}, launches)
+    winner = min(seconds, key=seconds.get)
+    if picked != fablib.with_exchange_mode(plan, winner) or not all(
+            0 < v < float("inf") for v in seconds.values()):
+        raise AssertionError(f"pick_exchange_mode: {picked.exchange_mode} "
+                             f"from {seconds}")
+    print(f"phase 10: {name}/timed pick_exchange_mode over {STEPS} rounds "
+          f"(best of {trials}, interleaved): "
+          + ", ".join(f"{m} {v * 1e3:.2f} ms ({v / STEPS * 1e6:.1f} "
+                      f"us/round)" for m, v in seconds.items())
+          + f"; winner {winner} [{gpu}]", flush=True)
+
+    # (f) The per-step loop against the streamed run on the star.
+    name = "FULL_BACKPLANE"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    state = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = main_drives(cfg)
+    outs, rates = in_turns(
+        {"run_event": lambda: netlib.run_event(params, state, drives, cfg,
+                                               device=DEV),
+         "run_event_steps": lambda: netlib.run_event_steps(
+             params, state, drives, cfg, device=DEV)},
+        launches, {"run_event": {"exchange row": STEPS},
+                   "run_event_steps": {"exchange row": STEPS}})
+    for x, y in zip(leaves(outs["run_event"]), leaves(outs["run_event_steps"]),
+                    strict=True):
+        parity.assert_equal("run_event_steps against run_event", x, y)
+    print(f"phase 10: {name} run_event_steps ({STEPS} step_event calls) "
+          f"equal bit for bit to run_event; us/step run_event "
+          f"{1e6 / rates['run_event'][0]:.0f} / "
+          f"{1e6 / rates['run_event'][1]:.0f}, run_event_steps "
+          f"{1e6 / rates['run_event_steps'][0]:.0f} / "
+          f"{1e6 / rates['run_event_steps'][1]:.0f} [{gpu}]", flush=True)
+
+    # (g) The card against the CPU on an overlap + hierarchical-flag run.
+    print("phase 10: " + card_vs_cpu("PROJECTED_120CHIP", "gather", True,
+                                     dt_us=OVERLAP_DT_US, flag=True,
+                                     overlap=True), flush=True)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -1830,6 +2134,7 @@ def main() -> None:
     phase7(launches, gpu)
     phase8(launches, gpu)
     phase9(launches, gpu, healthy)
+    phase10(launches, gpu, healthy)
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

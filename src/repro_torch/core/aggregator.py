@@ -50,19 +50,22 @@ def identity_router(n_nodes: int, route_enables: torch.Tensor | None = None,
 
 
 def route_step(state: RouterState, frames: EventFrame, capacity: int, *,
+               use_fused: bool | None = None,
                timing: TimedWire | None = None
                ) -> tuple[EventFrame, torch.Tensor]:
     """One exchange round of a one-backplane star: the 1-level fabric plan
     (``fabric.star_spec`` with ``state.route_enables``) through
     ``fabric_route_step``.
 
-    frames: per-node egress frames ``[..., n_nodes, cap_in]``; ``timing``
-    as in ``fabric_route_step``.  Returns (ingress frames
+    frames: per-node egress frames ``[..., n_nodes, cap_in]``;
+    ``use_fused`` and ``timing`` as in ``fabric_route_step``.  Returns
+    (ingress frames
     ``[..., n_nodes, capacity]``, congestion drops int32[..., n_nodes]).
     """
     plan = fablib.compile_fabric(fablib.star_spec(
         state.route_enables.shape[0], capacity, enables=state.route_enables))
     ingress, drops = fablib.fabric_route_step(state, frames, plan,
+                                              use_fused=use_fused,
                                               timing=timing)
     return ingress, drops.congestion
 
@@ -70,6 +73,7 @@ def route_step(state: RouterState, frames: EventFrame, capacity: int, *,
 def route_step_hierarchical(state: RouterState, frames: EventFrame,
                             capacity: int, *, n_pods: int,
                             intra_enables, inter_enables,
+                            use_fused: bool | None = None,
                             link_capacity: int | None = None,
                             pod_capacity: int | None = None,
                             timing: TimedWire | None = None
@@ -82,7 +86,8 @@ def route_step_hierarchical(state: RouterState, frames: EventFrame,
     (node ``k`` lives in pod ``k // (n_nodes // n_pods)``);
     intra_enables: bool[per_pod, per_pod]; inter_enables: bool[n_pods,
     n_pods]; ``link_capacity`` / ``pod_capacity``: the compact-before-gather
-    packs of each node's and each backplane's egress (``None`` = dense).
+    packs of each node's and each backplane's egress (``None`` = dense);
+    ``use_fused`` as in ``fabric_route_step``.
     Returns (ingress frames ``[..., n_nodes, capacity]``, ExchangeDrops).
     """
     n_nodes = frames.labels.shape[-2]
@@ -92,7 +97,8 @@ def route_step_hierarchical(state: RouterState, frames: EventFrame,
         n_pods=n_pods, per_pod=n_nodes // n_pods, capacity=capacity,
         intra_enables=intra_enables, inter_enables=inter_enables,
         link_capacity=link_capacity, pod_capacity=pod_capacity))
-    return fablib.fabric_route_step(state, frames, plan, timing=timing)
+    return fablib.fabric_route_step(state, frames, plan, use_fused=use_fused,
+                                    timing=timing)
 
 
 def route_step_baseline(state: RouterState, frames: EventFrame,

@@ -12,9 +12,13 @@ Port of the stacked part of ``src/repro/core/fabric.py``.
   merge segment layout.
 * ``fabric_route_step`` — one exchange round for all leaves (and any
   leading batch rows) on one device.  The plain one-level untimed star runs
-  the ``exchange`` kernel; every other plan, and every round with a health
-  overlay, runs fwd LUT, cascaded uplink packs and the nearest-first merge
-  in PyTorch, then the ``merge_pack`` kernel as the merge tail.
+  the ``exchange`` kernel; every other plan, every round with a health
+  overlay and every round with ``engine="merge"`` runs fwd LUT, cascaded
+  uplink packs and the nearest-first merge in PyTorch, then the
+  ``merge_pack`` kernel as the merge tail.  ``use_fused=False`` is the
+  reference's unfused composition, plain PyTorch with no kernel.
+* ``pick_exchange_mode`` — time both wire strategies on a plan and its
+  traffic and keep the faster.
 
 Hop-graph semantics (paper §III/§V): leaves are the ``prod(fan_in)``
 Node-FPGA endpoints.  A tier-``i`` entity (tier 0 = leaf, tier 1 =
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
@@ -60,6 +65,7 @@ from repro_torch.core.latency import LatencyParams, TimedWire, queue_wait_i32
 from repro_torch.core.link import LinkConfig
 from repro_torch.kernels.spike_router.ops import (fused_exchange,
                                                   fused_merge_pack)
+from repro_torch.kernels.spike_router.ref import merge_pack_ref
 
 
 class ExchangeDrops(NamedTuple):
@@ -675,8 +681,9 @@ def _detour_penalty(lvl: LevelPlan, timing: TimedWire, valid) -> torch.Tensor:
 
 
 def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
-                      timing: TimedWire | None = None, health=None
-                      ) -> tuple[EventFrame, ExchangeDrops]:
+                      use_fused: bool | None = None,
+                      timing: TimedWire | None = None, engine: str = "auto",
+                      health=None) -> tuple[EventFrame, ExchangeDrops]:
     """One N-level hop-graph exchange round, all leaves on one device.
 
     Args:
@@ -688,9 +695,17 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
       plan: compiled hop graph; ``exchange_mode`` "routed" builds each
         destination's stream from its enabled source entities only, with
         observables bit-identical to "gather".
+      use_fused: ``True`` (and ``None``, the default) runs the kernels;
+        ``False`` runs the reference's unfused composition in plain
+        PyTorch (``merge_pack``'s plain version: the segmented pack, then
+        the reverse LUT) and launches no kernel.  No environment variable
+        changes the default.
       timing: timed datapath (``latency.timed_wire``): ``frames.times`` are
         int32 departures and the ingress ``times`` arrivals; ``None`` keeps
         the untimed wire (ingress times are zeros).
+      engine: ``"auto"`` lets the plain one-level untimed round take the
+        ``exchange`` kernel; ``"merge"`` forces the merge engine (same
+        observables; the timed benchmarks' same-engine baseline).
       health: dynamic per-edge overlay (``FabricHealth``), one bool
         ``[n_edges]`` vector per level shared by every batch row, on the
         frames' device.  It masks flows on top of the plan's static health
@@ -702,6 +717,10 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
       (ingress frames [..., n_nodes, capacity], ExchangeDrops of
       int32[..., n_nodes]).
     """
+    if use_fused is None:
+        use_fused = True
+    if engine not in ("auto", "merge"):
+        raise ValueError(f"unknown engine: {engine!r}")
     levels = plan.levels
     *lead, n, cap_in = frames.labels.shape
     if n != plan.n_nodes:
@@ -713,9 +732,9 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
     routed = plan.exchange_mode == "routed"
 
     # The plain 1-level untimed star is one exchange-kernel round.
-    if (len(levels) == 1 and timing is None
-            and levels[0].link_capacity is None and not plan.degraded
-            and health is None and not routed):
+    if (engine == "auto" and use_fused and len(levels) == 1
+            and timing is None and levels[0].link_capacity is None
+            and not plan.degraded and health is None and not routed):
         out_l, out_v, dropped = fused_exchange(
             frames.labels, frames.valid, state.fwd_tables, state.rev_tables,
             _const(levels[0].enables, dev), capacity=plan.capacity)
@@ -850,11 +869,13 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
                 cur_l, cur_v, cur_t, cur_len = s_l, s_vf, s_t, s_len
             gsize = gnext
 
-    outs = fused_merge_pack(
-        torch.cat(parts_l, dim=-1), torch.cat(parts_v, dim=-1),
-        state.rev_tables, capacity=plan.capacity,
-        seg_lens=merge_segments(plan, cap_in),
-        compact=plan.compact,
+    labels = torch.cat(parts_l, dim=-1)
+    valid = torch.cat(parts_v, dim=-1)
+    seg_lens = merge_segments(plan, cap_in)
+    merge = fused_merge_pack if use_fused else merge_pack_ref
+    outs = merge(
+        labels, valid, state.rev_tables, capacity=plan.capacity,
+        seg_lens=seg_lens, compact=plan.compact,
         times=None if timing is None else torch.cat(parts_t, dim=-1),
         queue=None if timing is None else timing.queue)
     if timing is None:
@@ -865,6 +886,7 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
         out_l, out_v, out_t, dropped = outs
         out_t = torch.where(out_v, out_t + timing.recv_fixed_ns,
                             torch.zeros_like(out_t))
+
     def unflat(x):
         return x.reshape(*lead, *x.shape[1:])
 
@@ -873,3 +895,49 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
             ExchangeDrops(congestion=unflat(dropped), uplink=unflat(uplink),
                           unroutable=unflat(unroutable),
                           rerouted=unflat(rerouted)))
+
+
+# ---------------------------------------------------------------------------
+# Wire-strategy selection
+# ---------------------------------------------------------------------------
+
+
+def pick_exchange_mode(state, frames: EventFrame, plan: FabricPlan, *,
+                       timing: TimedWire | None = None,
+                       trials: int = 3) -> tuple[FabricPlan, dict[str, float]]:
+    """Time the merge engine under both wire strategies on this topology
+    and traffic, and return the winning plan.
+
+    ``frames`` carries a leading time axis (``[T, ..., n_nodes, cap_in]``):
+    a pass is one ``fabric_route_step(engine="merge")`` call per round, as
+    the reference's scan takes them.  Each mode runs one warm pass (on the
+    card this also builds and loads the kernels), then ``trials`` timed
+    passes interleaved across the modes (A B A B ...), so both see the
+    same drift in wall-clock time; each mode keeps its minimum.  On CUDA
+    the card is synchronised before and after each pass.
+
+    Returns ``(with_exchange_mode(plan, winner), seconds)``, ``seconds``
+    mapping each of ``EXCHANGE_MODES`` to its best pass.
+    """
+    cuda = frames.labels.is_cuda
+    plans = {mode: with_exchange_mode(plan, mode) for mode in EXCHANGE_MODES}
+
+    def one_pass(p) -> float:
+        if cuda:
+            torch.cuda.synchronize(frames.labels.device)
+        t0 = time.perf_counter()
+        for fr in zip(frames.labels, frames.times, frames.valid):
+            fabric_route_step(state, EventFrame(*fr), p, timing=timing,
+                              engine="merge")
+        if cuda:
+            torch.cuda.synchronize(frames.labels.device)
+        return time.perf_counter() - t0
+
+    for p in plans.values():
+        one_pass(p)                                      # warm (and build)
+    seconds = dict.fromkeys(plans, float("inf"))
+    for _ in range(trials):
+        for mode, p in plans.items():
+            seconds[mode] = min(seconds[mode], one_pass(p))
+    winner = min(seconds, key=seconds.get)
+    return plans[winner], seconds

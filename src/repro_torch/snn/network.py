@@ -1,10 +1,13 @@
 """Multi-chip SNN: chips joined by the interconnect.
 
 Port of the event-mode parts of ``src/repro/snn/network.py``: configuration,
-parameters and state of a network of stacked chips.  Inter-chip spikes
-arrive after ``delay_steps`` whole steps, derived from the chip-to-chip
-latency and the step ``dt``.  The dense (differentiable) routing path is
-queued in ROADMAP.md.
+parameters and state of a network of stacked chips, and the event-mode
+steps: ``step_event`` (one shift-register step through
+``aggregator.route_step``), ``run_event`` (the streamed run) and
+``run_event_steps`` (the per-step loop, the stream's oracle).  Inter-chip
+spikes arrive after ``delay_steps`` whole steps, derived from the
+chip-to-chip latency and the step ``dt``.  The dense (differentiable)
+routing path is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import aggregator as agg
 from repro_torch.core import routing as rt
+from repro_torch.core.events import make_frame
 from repro_torch.core.latency import DEFAULT_PARAMS, LatencyParams
 from repro_torch.snn import chip as chiplib
 
@@ -98,3 +102,74 @@ def to_device(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return type(tree)(*(to_device(x, device) for x in tree))
+
+
+# ---------------------------------------------------------------------------
+# Event-mode steps
+# ---------------------------------------------------------------------------
+
+
+def step_event(params: NetworkParams, state: NetworkState,
+               ext_drive: torch.Tensor, cfg: NetworkConfig, *, device=None
+               ) -> tuple[NetworkState, torch.Tensor, torch.Tensor]:
+    """One network step through the event datapath: the chip step on
+    ``ext_drive + inflight[0]``, then the star round
+    (``aggregator.route_step`` over ``params.router``) of its spikes, whose
+    row drives are appended to the delay line as ``inflight[0]`` leaves.
+
+    ext_drive: f32[n_chips, batch, n_rows].  Returns (new state, spikes
+    f32[n_chips, batch, n_neurons], dropped int32[n_chips, batch], egress
+    and congestion drops).  Runs on ``device`` (default CUDA).
+    """
+    # Imported here: the stream module imports this one.
+    from repro_torch.snn.stream import egress_label_grid
+
+    device = resolve_device(device)
+    params = to_device(params, device)
+    state = to_device(state, device)
+    drive = ext_drive.to(device) + state.inflight[0]
+    chips, spikes = chiplib.chip_step(params.chips, state.chips, drive,
+                                      cfg.chip)
+    valid = spikes.transpose(0, 1) > 0.5              # [batch, chips, neurons]
+    labels = egress_label_grid(cfg, device).expand(valid.shape)
+    frames, egress_drop = make_frame(labels, torch.zeros_like(labels), valid,
+                                     cfg.capacity)
+    ingress, agg_drop = agg.route_step(params.router, frames, cfg.capacity)
+    routed = chiplib.labels_to_rows(ingress.labels, ingress.valid,
+                                    params.row_of_label, cfg.chip.n_rows)
+    inflight = torch.cat([state.inflight[1:],
+                          routed.transpose(0, 1)[None]], dim=0)
+    return (NetworkState(chips=chips, inflight=inflight), spikes,
+            (egress_drop + agg_drop).transpose(0, 1))
+
+
+def run_event(params: NetworkParams, state: NetworkState,
+              ext_drives: torch.Tensor, cfg: NetworkConfig, *, device=None
+              ) -> tuple[NetworkState, torch.Tensor, torch.Tensor]:
+    """Streamed event-mode run on the star (``stream.run_stream``).
+    ext_drives: f32[T, n_chips, batch, n_rows].  Returns (final state,
+    spikes, dropped)."""
+    from repro_torch.snn import stream  # imported here, as above
+
+    out = stream.run_stream(params, state, ext_drives, cfg, mode="event",
+                            device=device)
+    return out.state, out.spikes, out.dropped
+
+
+def run_event_steps(params: NetworkParams, state: NetworkState,
+                    ext_drives: torch.Tensor, cfg: NetworkConfig, *,
+                    device=None
+                    ) -> tuple[NetworkState, torch.Tensor, torch.Tensor]:
+    """The per-step loop: one eager ``step_event`` per timestep.  Equal to
+    ``run_event``; kept as the stream's oracle and as the dispatch-bound
+    baseline of the exchange-stream benchmark."""
+    device = resolve_device(device)
+    params = to_device(params, device)
+    state = to_device(state, device)
+    spikes, dropped = [], []
+    for t in range(ext_drives.shape[0]):
+        state, spk, drp = step_event(params, state, ext_drives[t], cfg,
+                                     device=device)
+        spikes.append(spk)
+        dropped.append(drp)
+    return state, torch.stack(spikes), torch.stack(dropped)

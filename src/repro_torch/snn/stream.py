@@ -14,7 +14,9 @@ ring buffer on the port's own copy of ``state.inflight``, written in place
 and final state match the reference's.  A fault schedule degrades the
 exchange step by step (a health overlay per step, ``fault_mode="mask"``)
 or segment by segment (a degraded plan per constant-health segment,
-``"reroute"``), as the reference's segmented scans do.
+``"reroute"``), as the reference's segmented scans do.  ``overlap=True``
+defers each exchange one iteration (the reference's double-buffered
+window); the topology flag compiles a 1- or 2-level plan.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ def egress_label_grid(cfg: netlib.NetworkConfig, device) -> torch.Tensor:
 def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
                     cfg: netlib.NetworkConfig, plan: fablib.FabricPlan,
                     timing: latlib.TimedWire | None = None,
-                    health: fablib.FabricHealth | None = None):
+                    health: fablib.FabricHealth | None = None,
+                    use_fused: bool | None = None):
     """The exchange stage of one step for every batch row at once: egress
     tap → ``fabric_route_step`` → ingress decode.
 
@@ -97,7 +100,8 @@ def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
     chips first and the neurons last works: extra middle dims are more
     independent rows).  Every spike of the window departs at its open (time
     0 on the timed lane), so ingress times are the wire latencies.
-    ``health``: the step's dynamic overlay, shared by every row.
+    ``health``: the step's dynamic overlay, shared by every row;
+    ``use_fused`` as in ``fabric_route_step``.
 
     Returns (row drives f32[n_chips, ..., n_rows], dropped, uplink,
     latency_ns, latency_valid, unroutable, rerouted), each with the chips
@@ -109,6 +113,7 @@ def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
     times = None if timing is None else torch.zeros_like(labels)
     frames, egress_drop = make_frame(labels, times, valid, cfg.capacity)
     ingress, drops = fablib.fabric_route_step(params.router, frames, plan,
+                                              use_fused=use_fused,
                                               timing=timing, health=health)
     drives = chiplib.labels_to_rows(ingress.labels, ingress.valid,
                                     params.row_of_label, cfg.chip.n_rows)
@@ -164,7 +169,11 @@ def health_at(sched: fablib.FabricHealth, t: int) -> fablib.FabricHealth:
 
 def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                ext_drives: torch.Tensor, cfg: netlib.NetworkConfig, *,
-               mode: str = "event", topology: str = "star",
+               mode: str = "event", topology: str = "star", n_pods: int = 1,
+               intra_enables=None, inter_enables=None,
+               use_fused: bool | None = None,
+               link_capacity: int | None = None,
+               pod_capacity: int | None = None,
                fabric: fablib.FabricPlan | None = None, timed: bool = False,
                overlap: bool = False, faults=None, fault_mode: str = "mask",
                plasticity=None, slot_mask=None, device=None) -> StreamOut:
@@ -175,13 +184,35 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
       mode: ``"event"``, the faithful datapath (the dense surrogate is not
         ported yet).
       topology: without ``fabric``, ``"star"`` compiles a 1-level plan
-        whose enables are ``params.router.route_enables``.
+        whose enables are ``params.router.route_enables``;
+        ``"hierarchical"`` compiles the §V two-layer plan
+        (``fabric.hierarchical_spec``) of ``n_pods`` backplanes of
+        ``cfg.n_chips // n_pods`` chips, whose enables are
+        ``intra_enables`` (bool[per_pod, per_pod]) and ``inter_enables``
+        (bool[n_pods, n_pods]), both required.
+      use_fused: forwarded to every exchange (``fabric_route_step``):
+        ``False`` runs the unfused plain-PyTorch composition and launches
+        no kernel; ``None`` means ``True``.
+      link_capacity, pod_capacity: hierarchical only, the compact-before-
+        gather packs of each chip's and each backplane's uplink; their
+        overflow lands in ``StreamOut.uplink_dropped``.
       fabric: a compiled ``FabricPlan`` (leaf count and ingress capacity
         must match ``cfg``); its levels own the route enables, and only the
-        router's LUTs are read.  Either exchange mode.
+        router's LUTs are read.  Either exchange mode.  It replaces the
+        topology flag, which must stay ``"star"``.
       timed: thread the int32 timestamp lane through the exchange
         (``latency.timed_wire(cfg.latency)``) and report per-event wire
         latencies; the functional outputs equal the untimed run's.
+      overlap: needs ``delay_steps >= 2`` and no ``faults``.  Iteration
+        ``t`` runs chip step ``t``, then the exchange of step ``t - 1``'s
+        spikes, written to ring slot ``(t - 1) % delay``, which is read
+        ``delay - 1`` iterations later; a last exchange flushes the final
+        window, and the statistics are realigned to their steps.  Every
+        output equals the ``overlap=False`` run's, except at zero steps,
+        where the reference's quirk is kept: the statistics have one row
+        (the flushed zero window) and slot ``delay - 1`` of the delay line
+        is overwritten with that window's zero drives.  One CUDA stream
+        runs both phases.
       faults: a schedule of ``fabric.FaultEvent`` link faults injected into
         the stream; the per-step lost and detoured counts land in
         ``StreamOut.unroutable`` / ``StreamOut.rerouted``.  An empty
@@ -193,39 +224,61 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         compiles one statically degraded plan per constant-health segment,
         so dead uplinks detour over a sibling's spare extension lanes; the
         chip state, delay line and step count cross the segments untouched.
-      overlap, plasticity, slot_mask: not ported yet (ROADMAP.md queue 1,
-        items 1 and 4); they raise ``NotImplementedError``.
+      plasticity, slot_mask: not ported yet (ROADMAP.md queue 1, item 4);
+        they raise ``NotImplementedError``, as ``mode="dense"`` does
+        (item 8).
       device: where the run happens (default CUDA; raises if absent).
         Inputs are moved there.
 
     Returns:
       ``StreamOut`` with the chips-first per-step outputs and the final
       state (delay line in shift order).
+
+    The argument checks raise the reference's ``ValueError``s in its order.
     """
     if mode not in ("event", "dense"):
         raise ValueError(f"unknown mode: {mode!r}")
     if topology not in ("star", "hierarchical"):
         raise ValueError(f"unknown topology: {topology!r}")
+    if mode == "dense" and topology == "hierarchical":
+        raise ValueError("hierarchical topology is event-mode only; dense "
+                         "routing encodes the topology in route_mats")
+    if topology == "hierarchical" and (intra_enables is None
+                                       or inter_enables is None):
+        raise ValueError("hierarchical topology requires intra_enables and "
+                         "inter_enables")
+    if topology != "hierarchical" and (link_capacity is not None
+                                       or pod_capacity is not None):
+        raise ValueError("link_capacity/pod_capacity are uplink stages of "
+                         "the hierarchical topology (the stacked star round "
+                         "has none)")
+    if timed and mode != "event":
+        raise ValueError("timed streams require the event datapath (the "
+                         "dense surrogate has no wire to time)")
     if fault_mode not in ("mask", "reroute"):
         raise ValueError(f"unknown fault_mode: {fault_mode!r}")
     if faults is not None and mode != "event":
         raise ValueError("fault injection requires the event datapath (the "
                          "dense surrogate has no links to kill)")
-    if mode == "dense":
-        raise NotImplementedError("dense mode is not ported yet "
-                                  "(ROADMAP.md queue 1, item 8)")
-    if topology == "hierarchical":
-        raise NotImplementedError("the hierarchical topology flag is not "
-                                  "ported yet (ROADMAP.md queue 1, item 1); "
-                                  "pass a compiled 2-level plan as fabric=")
-    for name, asked, item in (("overlap", overlap, 1),
-                              ("plasticity", plasticity is not None, 4),
-                              ("slot_mask", slot_mask is not None, 4)):
-        if asked:
-            raise NotImplementedError(f"run_stream({name}=...) is not ported "
-                                      f"yet (ROADMAP.md queue 1, item {item})")
-    device = resolve_device(device)
+    if overlap:
+        if mode != "event":
+            raise ValueError("overlap double-buffers the exchange window — "
+                             "event mode only (dense routing is a matmul, "
+                             "there is no wire phase to overlap)")
+        if state.inflight.shape[0] < 2:
+            raise ValueError("overlap needs delay_steps >= 2: with a "
+                             "single-slot delay line the deferred write "
+                             "would land after its own read")
+        if faults is not None:
+            raise ValueError("overlap defers each exchange one iteration, "
+                             "which would skew the per-step fault/health "
+                             "schedule — run faults without overlap")
     if fabric is not None:
+        if mode != "event":
+            raise ValueError("fabric plans run the event datapath only")
+        if topology != "star":
+            raise ValueError("fabric replaces the topology flag — pass the "
+                             "plan alone (leave topology at its default)")
         if fabric.n_nodes != cfg.n_chips:
             raise ValueError(f"fabric plan wires {fabric.n_nodes} leaves "
                              f"but the network has {cfg.n_chips} chips")
@@ -233,10 +286,26 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
             raise ValueError(f"fabric plan ingress capacity "
                              f"{fabric.capacity} != cfg.capacity "
                              f"{cfg.capacity}")
+    if mode == "dense":
+        raise NotImplementedError("dense mode is not ported yet "
+                                  "(ROADMAP.md queue 1, item 8)")
+    for name, asked in (("plasticity", plasticity is not None),
+                        ("slot_mask", slot_mask is not None)):
+        if asked:
+            raise NotImplementedError(f"run_stream({name}=...) is not ported "
+                                      f"yet (ROADMAP.md queue 1, item 4)")
+    device = resolve_device(device)
+    if fabric is not None:
         plan = fabric
-    else:
+    elif topology == "star":
         plan = fablib.compile_fabric(fablib.star_spec(
             cfg.n_chips, cfg.capacity, enables=params.router.route_enables))
+    else:
+        plan = fablib.compile_fabric(fablib.hierarchical_spec(
+            n_pods=n_pods, per_pod=cfg.n_chips // n_pods,
+            capacity=cfg.capacity, intra_enables=intra_enables,
+            inter_enables=inter_enables, link_capacity=link_capacity,
+            pod_capacity=pod_capacity))
 
     params = netlib.to_device(params, device)
     chips = netlib.to_device(state.chips, device)
@@ -245,36 +314,58 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
     ext_drives = ext_drives.to(device)
     n_steps = ext_drives.shape[0]
     delay = inflight.shape[0]
+    rows = ext_drives.shape[1:-1]
     timing = latlib.timed_wire(cfg.latency) if timed else None
     plans, sched = fault_segments(plan, faults, fault_mode, n_steps, device)
 
-    steps = []
+    def route(spikes, t):
+        """Step ``t``'s exchange (its plan and overlay); the overlap
+        epilogue of a zero-step run has no step and takes ``plan``."""
+        health = None if sched is None else health_at(sched, t)
+        return exchange_spikes(params, spikes, cfg, plans[t] if plans else plan,
+                               timing, health, use_fused)
+
+    rasters, stats = [], []
     for t in range(n_steps):
         slot = t % delay
         # Ingress: the slot written `delay` steps ago.
         drive = ext_drives[t] + inflight[slot]
         chips, spikes = chiplib.chip_step(params.chips, chips, drive, cfg.chip)
-        health = None if sched is None else health_at(sched, t)
-        routed, *stats = exchange_spikes(params, spikes, cfg, plans[t],
-                                         timing, health)
-        # Egress: the consumed slot is the one due `delay` steps out.
-        inflight[slot] = routed
-        steps.append((spikes, *stats))
-    if steps:
-        spikes, dropped, uplink, lat, lat_valid, unroutable, rerouted = (
-            torch.stack(x) for x in zip(*steps))
+        if not overlap:
+            # Egress: the consumed slot is the one due `delay` steps out.
+            routed, *st = route(spikes, t)
+            inflight[slot] = routed
+            stats.append(st)
+        elif t:
+            # The exchange of step t - 1, one iteration late: its slot is
+            # read at step t - 1 + delay, never this iteration (delay >= 2).
+            routed, *st = route(rasters[-1], t - 1)
+            inflight[(t - 1) % delay] = routed
+            stats.append(st)
+        rasters.append(spikes)
+    spikes = (torch.stack(rasters) if rasters else
+              torch.zeros((0, *rows, cfg.chip.n_neurons),
+                          dtype=chips.neurons.v.dtype, device=device))
+    if overlap:
+        # Epilogue: flush the last window (at zero steps the reference's
+        # zero window, whose drives land in slot delay - 1).
+        last = (rasters[-1] if rasters else
+                spikes.new_zeros((*rows, cfg.chip.n_neurons)))
+        routed, *st = route(last, n_steps - 1)
+        inflight[(n_steps - 1) % delay] = routed
+        stats.append(st)
+    if stats:
+        dropped, uplink, lat, lat_valid, unroutable, rerouted = (
+            torch.stack(x) for x in zip(*stats))
     else:
         # Zero steps: the reference's scan returns zero-length outputs of
         # the per-step shapes and the state it was given.
-        rows = (0, *ext_drives.shape[1:-1])
         width = plan.capacity if timing is not None else 0
-        spikes = torch.zeros((*rows, cfg.chip.n_neurons),
-                             dtype=chips.neurons.v.dtype, device=device)
         dropped, uplink, unroutable, rerouted = (
-            torch.zeros(rows, dtype=torch.int32, device=device)
+            torch.zeros((0, *rows), dtype=torch.int32, device=device)
             for _ in range(4))
-        lat = torch.zeros((*rows, width), dtype=torch.int32, device=device)
-        lat_valid = torch.zeros((*rows, width), dtype=torch.bool,
+        lat = torch.zeros((0, *rows, width), dtype=torch.int32, device=device)
+        lat_valid = torch.zeros((0, *rows, width), dtype=torch.bool,
                                 device=device)
     # Shift-register order: slot `n_steps % delay` holds the oldest frame.
     if delay > 1 and n_steps % delay:
