@@ -87,8 +87,25 @@ Phases, each reported on its own lines:
    ``run_event_steps`` against ``run_event``; each run's launches by body
    checked, and phase 4's card-against-CPU check on a 16-step overlap +
    hierarchical-flag run.
+11. The Fig 5 latency model: ``simulate_fan_in`` at the paper's 2^15
+   spikes, fan-in 3, over ``benchmarks/fig5_latency.py``'s 8 rates at both
+   levels, the card against the CPU on the same draws bit for bit, the
+   reference battery's Fig 5 properties (chip medians inside the paper's
+   band and monotone, 8 ns ticks, the worst-regime jitter), and
+   ``hop_delays(...).total_ns`` against ``queue_wait_i32``; ms a call on
+   the card and on the host.
+12. Online plasticity at phase 3's width and drives: shared plasticity on
+   EXT_4CASE_96CHIP (timed) and FULL_BACKPLANE (untimed), per-slot
+   plasticity on EXT_4CASE_96CHIP with slots 4-7 idle over steps 16-47,
+   each in turns with the plain run (6 turns each) and launching what
+   phase 3's run does, by body; bit for bit: chained windows against one
+   run, the idle slots' silence and frozen traces and weights, overlap
+   against the plain loop (FULL_BACKPLANE, 0.25 us steps), each per-slot
+   row against a batch-1 run; peak device memory, a profiler pass over 8
+   plastic steps, and phase 4's card-against-CPU check on 16 plastic
+   steps with the flips judged on the evolving weights.
 
-Any failure exits non-zero.  The last line is the result for the harness.
+Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it fails before printing a result.
 """
@@ -139,7 +156,9 @@ from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.snn import network as netlib  # noqa: E402
 from repro_torch.snn import neuron as nrn  # noqa: E402
 from repro_torch.snn import stream  # noqa: E402
+from repro_torch.core import latency  # noqa: E402
 from repro_torch.core.latency import timed_wire  # noqa: E402
+from repro_torch.snn import plasticity as plas  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(DEV).multi_processor_count
@@ -195,19 +214,19 @@ FULL_FAULTS = (fablib.FaultEvent(0, 0, kill_step=16, restore_step=48),)
 CHECK_FAULTS = (fablib.FaultEvent(1, 0, kill_step=4, restore_step=12),
                 fablib.FaultEvent(0, 3, kill_step=8, kind="downlink"))
 # Phase 9's runs: (scenario, exchange mode, timed, fault mode, schedule,
-# launches expected over STEPS steps).  A step with an overlay never takes
+# launches by body expected over STEPS steps).  A step with an overlay never takes
 # the exchange fast path; a reroute segment with no dead edge does.
 FAULT_PATHS = (
     ("EXT_4CASE_96CHIP", "gather", True, "mask", EXT_FAULTS,
-     {"merge_pack": STEPS, "exchange": 0}),
+     {"merge_pack warp": STEPS}),
     ("EXT_4CASE_96CHIP", "gather", True, "reroute", EXT_FAULTS,
-     {"merge_pack": STEPS, "exchange": 0}),
+     {"merge_pack warp": STEPS}),
     ("EXT_4CASE_96CHIP", "routed", True, "mask", EXT_FAULTS,
-     {"merge_pack": STEPS, "exchange": 0}),
+     {"merge_pack warp": STEPS}),
     ("FULL_BACKPLANE", "gather", False, "mask", FULL_FAULTS,
-     {"merge_pack": STEPS, "exchange": 0}),
+     {"merge_pack block": STEPS}),
     ("FULL_BACKPLANE", "gather", False, "reroute", FULL_FAULTS,
-     {"merge_pack": STEPS // 2, "exchange": STEPS // 2}),
+     {"merge_pack block": STEPS // 2, "exchange row": STEPS // 2}),
 )
 # Phase 7 and the streaming/egress cases of phase 2: the egress frame width
 # of each scenario (analysis.scenarios.CASES' cap_in), the catalogue's
@@ -1165,6 +1184,89 @@ def phase2_lm(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Helpers of the SNN phases (3, 9, 10, 12): drives, counted runs, turns
+# ---------------------------------------------------------------------------
+
+STREAM_FIELDS = ("spikes", "dropped", "uplink_dropped", "latency_ns",
+                 "latency_valid", "unroutable", "rerouted")
+
+
+def main_drives(cfg) -> torch.Tensor:
+    """Phase 3's external drives for ``cfg``'s network."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    return (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
+                       generator=gen, device=DEV) < DRIVE_P).to(torch.float32)
+
+
+def leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in leaves(t)]
+
+
+def assert_same_stream(what: str, a, b) -> None:
+    """Two ``StreamOut``s equal bit for bit, final state included."""
+    for f in STREAM_FIELDS:
+        parity.assert_equal(f"{what} {f}", getattr(a, f), getattr(b, f))
+    for x, y in zip(leaves(a.state), leaves(b.state), strict=True):
+        parity.assert_equal(f"{what} state", x, y)
+
+
+def counted(fn):
+    """``fn()`` with the SNN kernels' counts set to 0 just before: returns
+    (its result, wall seconds to the card's end, launches by body)."""
+    torch.cuda.synchronize()
+    reset_snn_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v for k, v in snn_paths().items() if v}
+
+
+def expect_bodies(what: str, paths: dict, want: dict,
+                  launches: dict) -> None:
+    """Fails unless the run launched exactly ``want`` by body; adds its
+    launches to the main path's counts."""
+    if paths != want:
+        raise AssertionError(f"{what}: launches by body {paths}, expected "
+                             f"{want}")
+    for k, v in paths.items():
+        launches[k.split()[0]] += v
+
+
+def host_syncs(fn) -> int:
+    """How many synchronising CUDA operations ``fn()`` issues (CUDA's sync
+    debug mode, counted as its warnings; explicit synchronisation is not
+    counted)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def in_turns(runs: dict, launches: dict, want: dict,
+             rounds: int = 1) -> tuple[dict, dict]:
+    """Runs ``runs`` (name -> fn) as A B B A, ``rounds`` times over, each
+    run checked to launch ``want[name]`` by body.  Returns (last output,
+    steps/s list in run order) by name."""
+    outs, rates = {}, {k: [] for k in runs}
+    a, b = runs
+    for name in (a, b, b, a) * rounds:
+        outs[name], wall, paths = counted(runs[name])
+        expect_bodies(name, paths, want[name], launches)
+        rates[name].append(STEPS / wall)
+    return outs, rates
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -1178,37 +1280,16 @@ def phase3(launches: dict, gpu: str) -> dict:
         cfg, params, plan = scenarios.engine_network(name, device=DEV)
         plan = fablib.with_exchange_mode(plan, mode)
         state = netlib.init_state(cfg, BATCH, device=DEV)
-        gen = torch.Generator(device=DEV).manual_seed(3)
-        drives = (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
-                             generator=gen, device=DEV)
-                  < DRIVE_P).to(torch.float32)
-        stream.run_stream(params, state, drives[:4], cfg, fabric=plan,
-                          timed=timed, device=DEV)            # warm-up
-        torch.cuda.synchronize()
-        reset_snn_counts()
-        t0 = time.perf_counter()
-        out = stream.run_stream(params, state, drives, cfg, fabric=plan,
-                                timed=timed, device=DEV)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {"merge_pack": ops.fused_merge_pack.launches,
-                  "exchange": ops.fused_exchange.launches}
-        one_level = plan.n_levels == 1 and not timed and mode == "gather"
-        want = {"exchange": STEPS if one_level else 0,
-                "merge_pack": 0 if one_level else STEPS}
-        if counts != want:
-            raise AssertionError(f"{name}/{mode}: launches {counts}, "
-                                 f"expected {want}")
-        # Every main-path launch takes the single-pass bodies.
-        paths = snn_paths()
-        want_paths = {"exchange row": want["exchange"],
-                      "merge_pack warp": want["merge_pack"]}
-        if {k: v for k, v in paths.items() if v} != {
-                k: v for k, v in want_paths.items() if v}:
-            raise AssertionError(f"{name}/{mode}: bodies {paths}, expected "
-                                 f"{want_paths}")
-        for k, v in counts.items():
-            launches[k] += v
+        drives = main_drives(cfg)
+
+        def run(d=drives, p=params, s=state, c=cfg, pl=plan, tm=timed):
+            return stream.run_stream(p, s, d, c, fabric=pl, timed=tm,
+                                     device=DEV)
+
+        run(drives[:4])                                     # warm-up
+        out, wall, paths = counted(run)
+        expect_bodies(f"{name}/{mode}", paths,
+                      main_bodies(plan, mode, timed), launches)
         spikes = int(out.spikes.sum())
         if spikes == 0:
             raise AssertionError(f"{name}/{mode}: no spikes")
@@ -1223,8 +1304,8 @@ def phase3(launches: dict, gpu: str) -> dict:
                 f"{spikes / wall:.4g} egress events/s, spike occupancy "
                 f"{spikes / out.spikes.numel():.4f}, dropped "
                 f"{int(out.dropped.sum())}, uplink dropped "
-                f"{int(out.uplink_dropped.sum())}, launches {counts}, by "
-                f"body {paths}")
+                f"{int(out.uplink_dropped.sum())}, launches by body "
+                f"{paths}")
         if timed:
             stats = stream.stream_latency_stats(out)
             line += (f", delivered {stats['count'] / wall:.4g} events/s, "
@@ -1232,11 +1313,19 @@ def phase3(launches: dict, gpu: str) -> dict:
                      f"{stats['p99_ns']:.0f} ns")
         print(line + f" [{gpu}]", flush=True)
         print(f"phase 3: {name}/{mode}: "
-              + device_breakdown(lambda: stream.run_stream(
-                  params, state, drives[:PROFILE_STEPS], cfg, fabric=plan,
-                  timed=timed, device=DEV)) + f" [{gpu}]", flush=True)
+              + device_breakdown(lambda: run(drives[:PROFILE_STEPS]))
+              + f" [{gpu}]", flush=True)
         healthy[(name, mode, timed)] = (STEPS / wall, out.spikes)
     return healthy
+
+
+def main_bodies(plan, mode: str, timed: bool) -> dict:
+    """The launches by body of a healthy STEPS-step run: the exchange
+    kernel's row body on a 1-level untimed gather plan, merge_pack's warp
+    body otherwise."""
+    if plan.n_levels == 1 and not timed and mode == "gather":
+        return {"exchange row": STEPS}
+    return {"merge_pack warp": STEPS}
 
 
 def snn_paths() -> dict:
@@ -1306,13 +1395,17 @@ def phase4() -> None:
 
 def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
                 fault_mode: str = "mask", dt_us: float | None = None,
-                flag: bool = False, overlap: bool = False) -> str:
+                flag: bool = False, overlap: bool = False,
+                plastic: str | None = None) -> str:
     """The port on the card against the port on the CPU over CHECK_STEPS
     steps (dyadic weights and drives; the integer outputs equal up to
     near-threshold flips), then the exchange stage under teacher forcing
     with each step's plan and overlay, bit for bit.  ``dt_us`` overrides
     the step, ``flag`` runs the 2-level plan through the hierarchical
-    topology flag instead of ``fabric=``.  Returns the report."""
+    topology flag instead of ``fabric=``; ``plastic`` (``"shared"`` or
+    ``"slot"``) runs online plasticity with CHECK_MASK, the flips judged
+    on each step's evolving weights and the final traces and weights held
+    within ``parity.PLASTICITY_ATOL``.  Returns the report."""
     nets = {}
     for side, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
         # The same seed gives the same network on both devices.
@@ -1334,17 +1427,34 @@ def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
     def topology(pl, dev):
         return hierarchical_flag(pl, dev) if flag else dict(fabric=pl)
 
+    def plasticity(p, steps):
+        """The plastic runs' arguments over the first ``steps`` steps."""
+        if plastic is None:
+            return {}
+        init = (netlib.init_slot_plasticity if plastic == "slot"
+                else netlib.init_stream_plasticity)
+        return dict(plasticity=plas.STDPConfig(),
+                    plasticity_state=init(p, BATCH),
+                    slot_mask=CHECK_MASK[:steps])
+
     runs = {side: stream.run_stream(p, state, drives, cfg, timed=timed,
-                                    device=dev, **topology(pl, dev), **kw)
+                                    device=dev, **topology(pl, dev), **kw,
+                                    **plasticity(p, CHECK_STEPS))
             for side, (p, pl, dev) in nets.items()}
     cpu_params, cpu_plan, _ = nets["cpu"]
 
     def margin_at(t):
-        before = (stream.run_stream(cpu_params, state, drives[:t], cfg,
-                                    device="cpu", **topology(cpu_plan, "cpu"),
-                                    **kw).state
-                  if t else state)
-        return parity.spike_margin(cpu_params, before, drives[t], cfg)
+        if not t:
+            return parity.spike_margin(
+                cpu_params, state, drives[0], cfg,
+                plasticity(cpu_params, 0).get("plasticity_state",
+                                              cpu_params.chips).weights)
+        before = stream.run_stream(cpu_params, state, drives[:t], cfg,
+                                   device="cpu", **topology(cpu_plan, "cpu"),
+                                   **kw, **plasticity(cpu_params, t))
+        return parity.spike_margin(
+            cpu_params, before.state, drives[t], cfg,
+            None if before.plasticity is None else before.plasticity.weights)
 
     report = parity.compare_streams(runs["cpu"], runs["card"], margin_at)
     # Teacher forcing: both devices route the CPU run's own spikes, step by
@@ -1379,6 +1489,10 @@ def card_vs_cpu(name: str, mode: str, timed: bool, faults=None,
         what += "/hierarchical flag"
     if overlap:
         what += f"/overlap (delay {cfg.delay_steps})"
+    if plastic:
+        what += (f"/{plastic} plasticity with slots 4-7 masked over steps "
+                 f"4-11 (plasticity state max err "
+                 f"{report.get('plasticity_max_err')})")
     return (f"{name}/{mode}/{'timed' if timed else 'untimed'}{what}: card "
             f"== CPU over {CHECK_STEPS} steps ({spk} spikes, "
             f"{len(report['flips'])} near-threshold flips "
@@ -1760,10 +1874,7 @@ def phase9(launches: dict, gpu: str, healthy: dict) -> None:
         cfg, params, plan = scenarios.engine_network(name, device=DEV)
         plan = fablib.with_exchange_mode(plan, mode)
         state = netlib.init_state(cfg, BATCH, device=DEV)
-        gen = torch.Generator(device=DEV).manual_seed(3)    # phase 3's drives
-        drives = (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
-                             generator=gen, device=DEV)
-                  < DRIVE_P).to(torch.float32)
+        drives = main_drives(cfg)
 
         def run(d=drives, f=faults):
             return stream.run_stream(params, state, d, cfg, fabric=plan,
@@ -1771,26 +1882,13 @@ def phase9(launches: dict, gpu: str, healthy: dict) -> None:
                                      fault_mode=fault_mode, device=DEV)
 
         run(), run(f=None)                                  # warm-up
-        torch.cuda.synchronize()
         # The healthy run of the same inputs in turns with the faulted one.
-        rates = {None: [], faults: []}
-        for f in (None, faults, faults, None):
-            reset_snn_counts()
-            t0 = time.perf_counter()
-            o = run(f=f)
-            torch.cuda.synchronize()
-            rates[f].append(STEPS / (time.perf_counter() - t0))
-            if f is not None:
-                out, paths = o, snn_paths()
-                counts = {"merge_pack": ops.fused_merge_pack.launches,
-                          "exchange": ops.fused_exchange.launches}
+        outs, rates = in_turns(
+            {"healthy": lambda: run(f=None), "faulted": run},
+            launches, {"healthy": main_bodies(plan, mode, timed),
+                       "faulted": want})
+        out = outs["faulted"]
         what = f"{name}/{mode}/{'timed' if timed else 'untimed'}/{fault_mode}"
-        if counts != want:
-            raise AssertionError(f"{what}: launches {counts}, expected "
-                                 f"{want}")
-        for k, v in counts.items():
-            launches[k] += v
-
         healthy_rate, healthy_spikes = healthy[(name, mode, timed)]
         want_lost, want_detoured = expected_fault_traffic(
             plan, faults, fault_mode, healthy_spikes)
@@ -1814,13 +1912,14 @@ def phase9(launches: dict, gpu: str, healthy: dict) -> None:
         window = [t for t in range(STEPS) if fablib.dead_edges_at(faults, t)]
         print(f"phase 9: {what}: faults "
               f"{[dataclasses.astuple(f) for f in faults]}; {STEPS} steps at "
-              f"{rates[faults][0]:.1f} / {rates[faults][1]:.1f} steps/s "
-              f"(the healthy run in turns: {rates[None][0]:.1f} / "
-              f"{rates[None][1]:.1f}; phase 3's: {healthy_rate:.1f}), lost "
+              f"{rates['faulted'][0]:.1f} / {rates['faulted'][1]:.1f} "
+              f"steps/s (the healthy run in turns: "
+              f"{rates['healthy'][0]:.1f} / {rates['healthy'][1]:.1f}; "
+              f"phase 3's: {healthy_rate:.1f}), lost "
               f"{sum(lost)} events in steps {window[0]}-{window[-1]} (none "
               f"outside), rerouted {sum(detoured)}, spikes equal to the "
-              f"healthy run's through step {first_loss}; launches {counts}, "
-              f"by body {paths} [{gpu}]", flush=True)
+              f"healthy run's through step {first_loss}; launches by body "
+              f"{want} [{gpu}]", flush=True)
         local = fablib.shift_faults(faults, 16, PROFILE_STEPS)
         print(f"phase 9: {what}: " + device_breakdown(
             lambda: run(drives[16:16 + PROFILE_STEPS], local)) + f" [{gpu}]",
@@ -1837,8 +1936,6 @@ def phase9(launches: dict, gpu: str, healthy: dict) -> None:
 # Overlap needs delay_steps >= 2: 0.25 us steps give 4 against the 950 ns
 # chip-to-chip latency (the catalogue's 1 us steps give 1).
 OVERLAP_DT_US = 0.25
-STREAM_FIELDS = ("spikes", "dropped", "uplink_dropped", "latency_ns",
-                 "latency_valid", "unroutable", "rerouted")
 
 
 def hierarchical_flag(plan, device) -> dict:
@@ -1853,81 +1950,6 @@ def hierarchical_flag(plan, device) -> dict:
                 inter_enables=torch.ones((n_pods, n_pods), dtype=torch.bool,
                                          device=device),
                 link_capacity=link, pod_capacity=pod)
-
-
-def main_drives(cfg) -> torch.Tensor:
-    """Phase 3's external drives for ``cfg``'s network."""
-    gen = torch.Generator(device=DEV).manual_seed(3)
-    return (torch.rand((STEPS, cfg.n_chips, BATCH, cfg.chip.n_rows),
-                       generator=gen, device=DEV) < DRIVE_P).to(torch.float32)
-
-
-def leaves(tree) -> list:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [x for t in tree for x in leaves(t)]
-
-
-def assert_same_stream(what: str, a, b) -> None:
-    """Two ``StreamOut``s equal bit for bit, final state included."""
-    for f in STREAM_FIELDS:
-        parity.assert_equal(f"{what} {f}", getattr(a, f), getattr(b, f))
-    for x, y in zip(leaves(a.state), leaves(b.state), strict=True):
-        parity.assert_equal(f"{what} state", x, y)
-
-
-def counted(fn):
-    """``fn()`` with the SNN kernels' counts set to 0 just before: returns
-    (its result, wall seconds to the card's end, launches by body)."""
-    torch.cuda.synchronize()
-    reset_snn_counts()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return out, wall, {k: v for k, v in snn_paths().items() if v}
-
-
-def expect_bodies(what: str, paths: dict, want: dict,
-                  launches: dict) -> None:
-    """Fails unless the run launched exactly ``want`` by body; adds its
-    launches to the main path's counts."""
-    if paths != want:
-        raise AssertionError(f"{what}: launches by body {paths}, expected "
-                             f"{want}")
-    for k, v in paths.items():
-        launches[k.split()[0]] += v
-
-
-def host_syncs(fn) -> int:
-    """How many synchronising CUDA operations ``fn()`` issues (CUDA's sync
-    debug mode, counted as its warnings; explicit synchronisation is not
-    counted)."""
-    import warnings
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
-def in_turns(runs: dict, launches: dict, want: dict,
-             rounds: int = 1) -> tuple[dict, dict]:
-    """Runs ``runs`` (name -> fn) as A B B A, ``rounds`` times over, each
-    run checked to launch ``want[name]`` by body.  Returns (last output,
-    steps/s list in run order) by name."""
-    outs, rates = {}, {k: [] for k in runs}
-    a, b = runs
-    for name in (a, b, b, a) * rounds:
-        outs[name], wall, paths = counted(runs[name])
-        expect_bodies(name, paths, want[name], launches)
-        rates[name].append(STEPS / wall)
-    return outs, rates
 
 
 def phase10(launches: dict, gpu: str, healthy: dict) -> None:
@@ -2106,6 +2128,279 @@ def phase10(launches: dict, gpu: str, healthy: dict) -> None:
                                      dt_us=OVERLAP_DT_US, flag=True,
                                      overlap=True), flush=True)
 
+# ---------------------------------------------------------------------------
+# Phase 11: the Fig 5 latency model
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig5_latency.py's rate ladder (per sender, 3:1 fan-in) and the
+# paper's sample count.
+FIG5_RATES_HZ = (1e6, 5e6, 10e6, 25e6, 50e6, 70e6, 80e6, 83.3e6)
+FIG5_SPIKES = 2 ** 15
+
+
+def phase11(gpu: str) -> None:
+    ms = {"card": [], "host": []}
+    chip_meds, worst = [], None
+    for level in ("fpga", "chip"):
+        for rate in FIG5_RATES_HZ:
+            gen = torch.Generator(device=DEV).manual_seed(int(rate))
+            draws = latency.fan_in_draws(rate, FIG5_SPIKES, gen, 3, level)
+            sides = (("card", DEV, draws),
+                     ("host", torch.device("cpu"),
+                      latency.FanInDraws(*(x.cpu() for x in draws))))
+            lats = {}
+            for side, dev, d in sides:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lats[side] = latency.simulate_fan_in(
+                    rate, FIG5_SPIKES, fan_in=3, level=level, draws=d,
+                    device=dev)
+                torch.cuda.synchronize()
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+            what = f"fan-in 3 x {rate / 1e6:g} MHz, {level} level"
+            parity.assert_equal(f"{what}: card against CPU", lats["host"],
+                                lats["card"])
+            out = lats["card"]
+            if out.shape != (FIG5_SPIKES,) or not bool(
+                    (torch.remainder(out, latency.SYSTEM_CLOCK_NS) == 0)
+                    .all()):
+                raise AssertionError(f"{what}: not {FIG5_SPIKES} multiples "
+                                     f"of {latency.SYSTEM_CLOCK_NS} ns")
+            stats = latency.latency_statistics(out)
+            if level == "chip":
+                lo, hi = latency.PAPER_BAND_NS
+                if not lo <= stats["median_ns"] <= hi:
+                    raise AssertionError(f"{what}: median "
+                                         f"{stats['median_ns']} ns outside "
+                                         f"{latency.PAPER_BAND_NS}")
+                chip_meds.append(stats["median_ns"])
+                worst = stats
+            print(f"phase 11: {what}, {FIG5_SPIKES} spikes: median "
+                  f"{stats['median_ns']:.0f} ns, p01 {stats['p01_ns']:.0f}, "
+                  f"p99 {stats['p99_ns']:.0f}, jitter "
+                  f"{stats['jitter_frac'] * 100:.1f}% of the median; card "
+                  f"== CPU bit for bit; {ms['card'][-1]:.1f} ms a call on "
+                  f"the card, {ms['host'][-1]:.1f} ms on the host [{gpu}]",
+                  flush=True)
+    # The reference battery's Fig 5 properties (tests/test_latency_model.py).
+    for a, b in zip(chip_meds, chip_meds[1:]):
+        if b < a - latency.SYSTEM_CLOCK_NS:
+            raise AssertionError(f"chip medians not monotone: {chip_meds}")
+    frac = latency.PAPER_JITTER_FRAC
+    if not 0.66 * frac <= worst["jitter_frac"] <= 1.66 * frac:
+        raise AssertionError(f"worst-regime jitter {worst['jitter_frac']} "
+                             f"not near {frac}")
+    ranks = torch.arange(5 * latency.DEFAULT_PARAMS.cc_interval, device=DEV)
+    total = latency.hop_delays(latency.DEFAULT_PARAMS, ranks).total_ns
+    lane = latency.queue_wait_i32(ranks, timed_wire().queue)
+    parity.assert_equal("hop_delays total against queue_wait_i32",
+                        lane.to(torch.float32), total)
+    print(f"phase 11: chip-level medians {chip_meds} ns: inside "
+          f"{latency.PAPER_BAND_NS}, monotone within one 8 ns tick; "
+          f"83.3 MHz jitter {worst['jitter_frac']:.3f} of the median "
+          f"(paper {frac}); hop_delays(...).total_ns == queue_wait_i32 on "
+          f"ranks 0-{len(ranks) - 1} on the card; ms a call, median of "
+          f"{len(ms['card'])}: card {float(np.median(ms['card'])):.1f}, "
+          f"host {float(np.median(ms['host'])):.1f} (first card call "
+          f"{ms['card'][0]:.1f}) [{gpu}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: online plasticity and slot masking
+# ---------------------------------------------------------------------------
+
+
+def idle_mask(steps: int, start: int, stop: int) -> torch.Tensor:
+    """bool[steps, BATCH]: slots BATCH/2 and up idle over [start, stop)."""
+    mask = torch.ones((steps, BATCH), dtype=torch.bool)
+    mask[start:stop, BATCH // 2:] = False
+    return mask
+
+
+# Slots 4-7 idle over steps 16-47 of STEPS (the multi-tenant engine's idle
+# sessions), and over steps 4-11 of CHECK_STEPS for the card-against-CPU
+# check.
+IDLE_STEPS = (16, 48)
+SLOT_MASK = idle_mask(STEPS, *IDLE_STEPS)
+CHECK_MASK = idle_mask(CHECK_STEPS, 4, 12)
+STDP = plas.STDPConfig()
+
+
+def assert_same_plastic(what: str, a, b) -> None:
+    """Two plastic runs equal bit for bit, plasticity state included."""
+    assert_same_stream(what, a, b)
+    for x, y in zip(a.plasticity, b.plasticity, strict=True):
+        parity.assert_equal(f"{what} plasticity", x, y)
+
+
+def chained(run, drives, mask, ps, cuts) -> list:
+    """``run`` over the windows between ``cuts``, each from the last
+    one's state and plasticity state."""
+    outs, state = [], None
+    for a, b in zip(cuts, cuts[1:]):
+        out = run(drives[a:b], state=state, ps=ps,
+                  mask=None if mask is None else mask[a:b])
+        outs.append(out)
+        state, ps = out.state, out.plasticity
+    return outs
+
+
+def joined(outs):
+    """The chained windows as one run's outputs."""
+    return outs[-1]._replace(**{f: torch.cat([getattr(o, f) for o in outs])
+                             for f in STREAM_FIELDS})
+
+
+def phase12(launches: dict, gpu: str) -> None:
+    # (a) Shared plasticity against the plain run, in turns.
+    for name, mode, timed in (("EXT_4CASE_96CHIP", "gather", True),
+                              ("FULL_BACKPLANE", "gather", False)):
+        cfg, params, plan = scenarios.engine_network(name, device=DEV)
+        plan = fablib.with_exchange_mode(plan, mode)
+        state0 = netlib.init_state(cfg, BATCH, device=DEV)
+        drives = main_drives(cfg)
+        want = main_bodies(plan, mode, timed)
+
+        def run(d=drives, state=None, ps=None, mask=None, plastic=True,
+                p=params, c=cfg, pl=plan, tm=timed, s0=state0):
+            kw = (dict(plasticity=STDP, plasticity_state=ps, slot_mask=mask)
+                  if plastic else {})
+            return stream.run_stream(p, s0 if state is None else state, d, c,
+                                     fabric=pl, timed=tm, device=DEV, **kw)
+
+        run(drives[:4])                                     # warm-up
+        outs, rates = in_turns({"plain": lambda: run(plastic=False),
+                                "plastic": run}, launches,
+                               {"plain": want, "plastic": want}, rounds=3)
+        out = outs["plastic"]
+        moved = out.plasticity.weights != params.chips.weights
+        if not bool(moved.any()):
+            raise AssertionError(f"{name}: the weights did not move")
+        assert_same_plastic(f"{name} two chained windows against one run",
+                            out, joined(chained(run, drives, None, None,
+                                                (0, STEPS // 2, STEPS))))
+        what = f"{name}/{'timed' if timed else 'untimed'}"
+        print(f"phase 12: {what} shared plasticity: "
+              f"{float(moved.float().mean()):.3f} of the weights moved "
+              f"(max {float((out.plasticity.weights - params.chips.weights).abs().max()):.2f}), "
+              f"{int(out.spikes.sum())} spikes against "
+              f"{int(outs['plain'].spikes.sum())} plain; two chained "
+              f"{STEPS // 2}-step windows equal the {STEPS}-step run bit for "
+              f"bit; launches by body {want} in every run, as phase 3's; "
+              f"steps/s in turns (plain, plastic, plastic, plain) x 3: plain "
+              f"{', '.join(f'{r:.1f}' for r in rates['plain'])}; plastic "
+              f"{', '.join(f'{r:.1f}' for r in rates['plastic'])} [{gpu}]",
+              flush=True)
+        print(f"phase 12: {what} shared plasticity: " + device_breakdown(
+            lambda: run(drives[:PROFILE_STEPS])) + f" [{gpu}]", flush=True)
+
+    # (b) Per-slot plasticity with slots 4-7 idle over steps 16-47.
+    name = "EXT_4CASE_96CHIP"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    state0 = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = main_drives(cfg)
+    mask = SLOT_MASK.to(DEV)
+    want = {"merge_pack warp": STEPS}
+
+    def slot_run(d=drives, state=None, ps=None, mask=mask, batch=BATCH,
+                 plastic=True, **kw):
+        if plastic:
+            kw.update(plasticity=STDP, slot_mask=mask, plasticity_state=(
+                netlib.init_slot_plasticity(params, batch) if ps is None
+                else ps))
+        return stream.run_stream(
+            params, netlib.init_state(cfg, batch, device=DEV)
+            if state is None else state, d, cfg, fabric=plan, timed=True,
+            device=DEV, **kw)
+
+    slot_run(drives[:4], mask=mask[:4])                     # warm-up
+    torch.cuda.reset_peak_memory_stats(DEV)
+    outs, rates = in_turns({"plain": lambda: slot_run(plastic=False),
+                            "per-slot": slot_run}, launches,
+                           {"plain": want, "per-slot": want}, rounds=3)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    out = outs["per-slot"]
+    start, stop = IDLE_STEPS
+    idle = (slice(start, stop), slice(None), slice(BATCH // 2, None))
+    if float(out.spikes[idle].sum()) or int(out.dropped[idle].sum()):
+        raise AssertionError("per-slot: idle slots emitted events")
+    windows = chained(slot_run, drives, mask, None, (0, start, stop, STEPS))
+    assert_same_plastic("per-slot: three chained windows against one run",
+                        out, joined(windows))
+    for field, before, after in zip(plas.SlotPlasticityState._fields,
+                                    windows[0].plasticity,
+                                    windows[1].plasticity):
+        parity.assert_equal(f"per-slot: idle slots' {field} over steps "
+                            f"{start}-{stop - 1}", before[:, BATCH // 2:],
+                            after[:, BATCH // 2:])
+        if torch.equal(before[:, :BATCH // 2], after[:, :BATCH // 2]):
+            raise AssertionError(f"per-slot: the busy slots' {field} did "
+                                 f"not move over steps {start}-{stop - 1}")
+    # Each row equals a batch-1 run of its own, over CHECK_STEPS steps with
+    # CHECK_MASK.
+    short = CHECK_MASK.to(DEV)
+    together = slot_run(drives[:CHECK_STEPS], mask=short)
+    for b in range(BATCH):
+        alone = slot_run(drives[:CHECK_STEPS, :, b:b + 1],
+                         mask=short[:, b:b + 1], batch=1)
+        for f in STREAM_FIELDS:
+            parity.assert_equal(f"per-slot row {b} alone: {f}",
+                                getattr(alone, f),
+                                getattr(together, f)[:, :, b:b + 1])
+        for x, y in zip(leaves(alone.state), leaves(together.state)):
+            parity.assert_equal(f"per-slot row {b} alone: state", x,
+                                y[..., b:b + 1, :])
+        for x, y in zip(alone.plasticity, together.plasticity):
+            parity.assert_equal(f"per-slot row {b} alone: plasticity", x,
+                                y[:, b:b + 1])
+    print(f"phase 12: {name}/timed per-slot plasticity, slots "
+          f"{BATCH // 2}-{BATCH - 1} idle over steps {start}-{stop - 1}: "
+          f"the idle slots emitted nothing there and their "
+          f"traces and weights did not move; three chained windows equal "
+          f"the {STEPS}-step run bit for bit; each of the {BATCH} rows "
+          f"equals a batch-1 run over {CHECK_STEPS} steps bit for bit; "
+          f"launches by body {want} in every run; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB (per-slot weights "
+          f"{out.plasticity.weights.numel() * 4 / 1e6:.0f} MB); steps/s in "
+          f"turns (plain, per-slot, per-slot, plain) x 3: plain "
+          f"{', '.join(f'{r:.1f}' for r in rates['plain'])}; per-slot "
+          f"{', '.join(f'{r:.1f}' for r in rates['per-slot'])} [{gpu}]",
+          flush=True)
+    print(f"phase 12: {name}/timed per-slot plasticity: " + device_breakdown(
+        lambda: slot_run(drives[:PROFILE_STEPS], mask=mask[:PROFILE_STEPS]))
+        + f" [{gpu}]", flush=True)
+
+    # (c) Overlap with the mask against the plain loop (per-slot).
+    name = "FULL_BACKPLANE"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    cfg = dataclasses.replace(cfg, dt_us=OVERLAP_DT_US)
+    state0 = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = main_drives(cfg)
+
+    def run(overlap):
+        return stream.run_stream(
+            params, state0, drives, cfg, fabric=plan, overlap=overlap,
+            plasticity=STDP, slot_mask=mask,
+            plasticity_state=netlib.init_slot_plasticity(params, BATCH),
+            device=DEV)
+
+    want = {"exchange row": STEPS}
+    outs, _ = in_turns({"plain": lambda: run(False),
+                        "overlap": lambda: run(True)}, launches,
+                       {"plain": want, "overlap": want})
+    assert_same_plastic(f"{name} overlap against plain", outs["plain"],
+                        outs["overlap"])
+    print(f"phase 12: {name}/untimed per-slot plasticity with the slot mask, "
+          f"overlap=True (delay {cfg.delay_steps}): equal bit for bit to "
+          f"overlap=False; launches by body {want} each [{gpu}]", flush=True)
+
+    # (d) The card against the CPU on 16 plastic steps.
+    for name, mode, timed, plastic in (
+            ("EXT_4CASE_96CHIP", "gather", True, "shared"),
+            ("FULL_BACKPLANE", "gather", False, "slot")):
+        print("phase 12: " + card_vs_cpu(name, mode, timed, plastic=plastic),
+              flush=True)
+
 
 def main() -> None:
     gpu = card()
@@ -2123,18 +2418,27 @@ def main() -> None:
               flush=True)
 
     results: dict = {}
-    phase2(results)
-    phase2_interconnect(results)
-    phase2_lm(results)
     launches = {k: 0 for k in KERNEL_SOURCES}
-    healthy = phase3(launches, gpu)
-    phase4()
-    phase5(launches, gpu)
-    phase6()
-    phase7(launches, gpu)
-    phase8(launches, gpu)
-    phase9(launches, gpu, healthy)
-    phase10(launches, gpu, healthy)
+    healthy: dict = {}
+
+    def timed_phase(name: str, fn) -> None:
+        t_start = time.perf_counter()
+        fn()
+        print(f"phase {name}: wall time {time.perf_counter() - t_start:.1f} "
+              f"s", flush=True)
+
+    timed_phase("2", lambda: (phase2(results), phase2_interconnect(results),
+                              phase2_lm(results)))
+    timed_phase("3", lambda: healthy.update(phase3(launches, gpu)))
+    timed_phase("4", phase4)
+    timed_phase("5", lambda: phase5(launches, gpu))
+    timed_phase("6", phase6)
+    timed_phase("7", lambda: phase7(launches, gpu))
+    timed_phase("8", lambda: phase8(launches, gpu))
+    timed_phase("9", lambda: phase9(launches, gpu, healthy))
+    timed_phase("10", lambda: phase10(launches, gpu, healthy))
+    timed_phase("11", lambda: phase11(gpu))
+    timed_phase("12", lambda: phase12(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

@@ -4,8 +4,8 @@ The arrays travel as a flat ``{path: numpy array}`` dict keyed by the JAX
 pytree paths (``chips.weights``, ``router.fwd_tables``,
 ``chips.neurons.v``, ``layers.mamba.in_proj``, ...), so the port never sees
 a JAX object: a caller flattens the reference's ``NetworkParams`` /
-``NetworkState`` or LM parameter and cache trees with numpy and hands the
-dict over.
+``NetworkState``, plasticity state or LM parameter and cache trees with
+numpy and hands the dict over.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from repro_torch.models.ssm import SSMCache
 from repro_torch.snn.chip import ChipParams, ChipState
 from repro_torch.snn.network import NetworkParams, NetworkState
 from repro_torch.snn.neuron import NeuronState
+from repro_torch.snn.plasticity import (SlotPlasticityState,
+                                        StreamPlasticityState)
 
 # Key → dtype of every array the port reads.
 PARAM_KEYS = {
@@ -84,6 +86,26 @@ def network_state_from_numpy(arrays: dict[str, np.ndarray], device=None
             w_adapt=t["chips.neurons.w_adapt"],
             refrac=t["chips.neurons.refrac"])),
         inflight=t["inflight"])
+
+
+PLASTICITY_KEYS = dict.fromkeys(("trace_pre", "trace_post", "weights"),
+                                torch.float32)
+
+
+def stream_plasticity_from_numpy(arrays: dict[str, np.ndarray], device=None
+                                 ) -> StreamPlasticityState:
+    """``run_stream``'s shared plasticity state from the JAX
+    ``StreamPlasticityState`` flattened to ``{"trace_pre", "trace_post",
+    "weights"}`` (weights [n_chips, n_rows, n_neurons])."""
+    return StreamPlasticityState(**_tensors(arrays, PLASTICITY_KEYS, device))
+
+
+def slot_plasticity_from_numpy(arrays: dict[str, np.ndarray], device=None
+                               ) -> SlotPlasticityState:
+    """The per-slot plasticity state from the JAX ``SlotPlasticityState``
+    flattened the same way (weights [n_chips, batch, n_rows,
+    n_neurons])."""
+    return SlotPlasticityState(**_tensors(arrays, PLASTICITY_KEYS, device))
 
 
 # ---------------------------------------------------------------------------

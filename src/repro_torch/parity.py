@@ -32,6 +32,11 @@ FLIP_MARGIN = 1e-5
 # Tolerance of the final float state where the rasters agree, for the same
 # reason.
 STATE_ATOL = 1e-5
+# Tolerance of the final plasticity traces and weights (0..63) where the
+# rasters agree: the port rounds the update as the reference does
+# (``snn.plasticity``), bit for bit but for a float64 sum that rounds onto
+# a float32 midpoint, one ulp of a weight (3.8e-6 at 63).
+PLASTICITY_ATOL = 1e-5
 
 INT_FIELDS = ("dropped", "uplink_dropped", "latency_ns", "latency_valid",
               "unroutable", "rerouted")
@@ -56,14 +61,16 @@ def assert_equal(name: str, ref, got) -> None:
                              f"{b[i]} != reference {a[i]}")
 
 
-def spike_margin(params, state, ext_drive: torch.Tensor, cfg) -> torch.Tensor:
+def spike_margin(params, state, ext_drive: torch.Tensor, cfg,
+                 weights: torch.Tensor | None = None) -> torch.Tensor:
     """|v − v_th| before the threshold of the step that starts from
     ``state`` (delay line in shift order, so slot 0 is due) with
     ``ext_drive`` — computed with the port's float32 arithmetic, which
-    differs from another backend's by a few ulp."""
+    differs from another backend's by a few ulp.  Under plasticity pass
+    that step's evolving ``weights`` (shared [c, rows, n] or per slot
+    [c, batch, rows, n]) in place of ``params.chips.weights``."""
     drive = ext_drive + state.inflight[0]
-    current = torch.bmm(drive, chiplib.effective_weights(params.chips,
-                                                         cfg.chip))
+    current = chiplib.synapse_current(params.chips, drive, cfg.chip, weights)
     _, v = nrn.membrane(state.chips.neurons, current, cfg.chip.neuron)
     return (v - cfg.chip.neuron.v_th).abs()
 
@@ -76,7 +83,9 @@ def compare_streams(ref, got, margin_at: Callable[[int], torch.Tensor]
     [n_chips, batch, n_neurons]; it is called only if the rasters diverge.
     Raises ``AssertionError`` on any mismatch the flip rule does not allow.
     Returns ``{"steps", "first_flip_step", "flips": [(t, chip, batch,
-    neuron, margin)], "state_max_err"}``.
+    neuron, margin)], "state_max_err"}``, and ``"plasticity_max_err"``
+    where the runs were plastic and the rasters agree (final traces and
+    weights within ``PLASTICITY_ATOL``).
     """
     ref_spk, got_spk = as_numpy(ref.spikes), as_numpy(got.spikes)
     if ref_spk.shape != got_spk.shape:
@@ -115,4 +124,17 @@ def compare_streams(ref, got, margin_at: Callable[[int], torch.Tensor]
     assert_equal("state refrac", ref_n.refrac, got_n.refrac)
     assert_equal("state inflight", ref.state.inflight, got.state.inflight)
     report["state_max_err"] = err
+    if getattr(ref, "plasticity", None) is not None:
+        perr = 0.0
+        for field in ("trace_pre", "trace_post", "weights"):
+            a = as_numpy(getattr(ref.plasticity, field))
+            b = as_numpy(getattr(got.plasticity, field))
+            if a.shape != b.shape:
+                raise AssertionError(f"plasticity {field}: shape {b.shape} "
+                                     f"!= reference {a.shape}")
+            perr = max(perr, float(np.abs(a - b).max(initial=0.0)))
+        if not perr <= PLASTICITY_ATOL:
+            raise AssertionError(f"final plasticity state differs by "
+                                 f"{perr:.3g} > {PLASTICITY_ATOL}")
+        report["plasticity_max_err"] = perr
     return report

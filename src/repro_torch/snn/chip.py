@@ -76,10 +76,34 @@ def quantize_ste(w: torch.Tensor) -> torch.Tensor:
     return w + (torch.round(w) - w).detach()
 
 
-def effective_weights(params: ChipParams, cfg: ChipConfig) -> torch.Tensor:
-    """``(w · w_scale) · row_sign`` in the reference's order, [c, rows, n]."""
-    w = quantize_ste(params.weights) if cfg.quantize_weights else params.weights
+def effective_weights(params: ChipParams, cfg: ChipConfig,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """``(w · w_scale) · row_sign`` in the reference's order: of
+    ``params.weights`` [c, rows, n], or of ``weights``, shared [c, rows, n]
+    or per slot [c, batch, rows, n]."""
+    w = params.weights if weights is None else weights
+    w = quantize_ste(w) if cfg.quantize_weights else w
+    if w.dim() == 4:
+        return ((w * params.w_scale[:, None, None, None])
+                * params.row_sign[:, None, :, None])
     return (w * params.w_scale[:, None, None]) * params.row_sign[:, :, None]
+
+
+def synapse_current(params: ChipParams, in_spikes: torch.Tensor,
+                    cfg: ChipConfig,
+                    weights: torch.Tensor | None = None) -> torch.Tensor:
+    """The row contraction of one step, [c, batch, n]: ``in_spikes``
+    [c, batch, rows] against the shared weights (``params.weights``, or
+    ``weights`` [c, rows, n]) in one ``bmm`` over chips, or against
+    per-slot weights [c, batch, rows, n] in one ``bmm`` of ``[1, rows] ×
+    [rows, n]`` products, one a slot: the per-problem shape of the shared
+    product at batch 1, so a slot equals a batch-1 ``chip_step``."""
+    w_eff = effective_weights(params, cfg, weights)
+    if w_eff.dim() == 3:
+        return torch.bmm(in_spikes, w_eff)
+    c, b, r, n = w_eff.shape
+    return torch.bmm(in_spikes.reshape(c * b, 1, r),
+                     w_eff.reshape(c * b, r, n)).reshape(c, b, n)
 
 
 def chip_step(params: ChipParams, state: ChipState, in_spikes: torch.Tensor,
@@ -93,9 +117,31 @@ def chip_step(params: ChipParams, state: ChipState, in_spikes: torch.Tensor,
     Returns:
       (new_state, out_spikes f32[n_chips, batch, n_neurons]).
     """
-    current = torch.bmm(in_spikes, effective_weights(params, cfg))
+    current = synapse_current(params, in_spikes, cfg)
     new_neurons, spikes = nrn.neuron_step(state.neurons, current, cfg.neuron)
     return ChipState(neurons=new_neurons), spikes
+
+
+def chip_step_slots(params: ChipParams, state: ChipState,
+                    in_spikes: torch.Tensor, weights: torch.Tensor,
+                    cfg: ChipConfig = ChipConfig()
+                    ) -> tuple[ChipState, torch.Tensor]:
+    """One step of every chip with per-slot weight arrays (the
+    multi-tenant engine): ``chip_step``'s order (quantize, scale, row
+    sign, contraction, neuron step), but batch row ``b`` of chip ``c``
+    integrates ``weights[c, b]`` (f32[n_chips, batch, n_rows, n_neurons]).
+    Each slot's contraction is a batch-1 ``chip_step``'s, bit for bit
+    (``synapse_current``)."""
+    current = synapse_current(params, in_spikes, cfg, weights)
+    new_neurons, spikes = nrn.neuron_step(state.neurons, current, cfg.neuron)
+    return ChipState(neurons=new_neurons), spikes
+
+
+def crossbar_to_rows(out_spikes: torch.Tensor,
+                     select: torch.Tensor) -> torch.Tensor:
+    """Layer-1 crossbar: neuron outputs [..., n_neurons] onto synapse-row
+    drivers through the 0/1 matrix ``select`` [n_neurons, n_rows]."""
+    return out_spikes @ select
 
 
 def spikes_to_labels(out_spikes: torch.Tensor, chip_id: int,

@@ -7,7 +7,8 @@ steps: ``step_event`` (one shift-register step through
 ``run_event_steps`` (the per-step loop, the stream's oracle).  Inter-chip
 spikes arrive after ``delay_steps`` whole steps, derived from the
 chip-to-chip latency and the step ``dt``.  The dense (differentiable)
-routing path is queued in ROADMAP.md.
+routing path is queued in ROADMAP.md.  ``init_stream_plasticity`` and
+``init_slot_plasticity`` start ``run_stream``'s online plasticity.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.core import routing as rt
 from repro_torch.core.events import make_frame
 from repro_torch.core.latency import DEFAULT_PARAMS, LatencyParams
 from repro_torch.snn import chip as chiplib
+from repro_torch.snn import plasticity as plaslib
 
 NEURON_BITS = 9  # 512 neurons per chip
 
@@ -95,6 +97,21 @@ def init_state(cfg: NetworkConfig, batch: int, *, device=None
         inflight=torch.zeros((cfg.delay_steps, cfg.n_chips, batch,
                               cfg.chip.n_rows), dtype=torch.float32,
                              device=device))
+
+
+def init_stream_plasticity(params: NetworkParams, batch: int):
+    """Zero STDP traces over the network's stacked chip weights, for
+    ``run_stream(plasticity=...)`` (a ``StreamPlasticityState`` on the
+    weights' device)."""
+    return plaslib.init_stream_stdp(params.chips.weights, batch)
+
+
+def init_slot_plasticity(params: NetworkParams, batch: int):
+    """Per-slot plasticity state: zero traces and every batch row's own
+    copy of the network's stacked chip weights (``SlotPlasticityState``),
+    the multi-tenant engine's mode, where batch rows are independent
+    sessions."""
+    return plaslib.init_slot_stdp(params.chips.weights, batch)
 
 
 def to_device(tree, device):

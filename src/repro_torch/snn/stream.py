@@ -16,7 +16,9 @@ exchange step by step (a health overlay per step, ``fault_mode="mask"``)
 or segment by segment (a degraded plan per constant-health segment,
 ``"reroute"``), as the reference's segmented scans do.  ``overlap=True``
 defers each exchange one iteration (the reference's double-buffered
-window); the topology flag compiles a 1- or 2-level plan.
+window); the topology flag compiles a 1- or 2-level plan.  Online
+plasticity rewrites the weights the chips integrate after every step,
+shared per chip or per batch row, and a slot mask silences batch rows.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.core import latency as latlib
 from repro_torch.core.events import make_frame
 from repro_torch.snn import chip as chiplib
 from repro_torch.snn import network as netlib
+from repro_torch.snn import plasticity as plaslib
 
 
 class StreamOut(NamedTuple):
@@ -48,7 +51,12 @@ class StreamOut(NamedTuple):
     # Degraded-plan accounting (zeros on a healthy fabric).
     unroutable: torch.Tensor      # i32[T, n_chips, batch]
     rerouted: torch.Tensor        # i32[T, n_chips, batch]
-    plasticity: None = None       # online plasticity is not ported yet
+    # Plastic runs only (``plasticity=STDPConfig(...)``): the final traces
+    # and evolved weights, per chip (``StreamPlasticityState``) or per slot
+    # (``SlotPlasticityState``, when the run started from one); ``None``
+    # when the run is not plastic.
+    plasticity: (plaslib.StreamPlasticityState | plaslib.SlotPlasticityState
+                 | None) = None
 
 
 _LATENCY_STAT_KEYS = ("median_ns", "p01_ns", "p99_ns", "jitter_ns",
@@ -176,7 +184,11 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                pod_capacity: int | None = None,
                fabric: fablib.FabricPlan | None = None, timed: bool = False,
                overlap: bool = False, faults=None, fault_mode: str = "mask",
-               plasticity=None, slot_mask=None, device=None) -> StreamOut:
+               plasticity: plaslib.STDPConfig | None = None,
+               plasticity_state: (plaslib.StreamPlasticityState
+                                  | plaslib.SlotPlasticityState
+                                  | None) = None,
+               slot_mask=None, device=None) -> StreamOut:
     """Run the closed-loop emulation over ``ext_drives``.
 
     Args:
@@ -224,9 +236,25 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         compiles one statically degraded plan per constant-health segment,
         so dead uplinks detour over a sibling's spare extension lanes; the
         chip state, delay line and step count cross the segments untouched.
-      plasticity, slot_mask: not ported yet (ROADMAP.md queue 1, item 4);
-        they raise ``NotImplementedError``, as ``mode="dense"`` does
-        (item 8).
+      plasticity: an ``STDPConfig`` switches on online plasticity: after
+        each chip step, the step's row drive and output spikes update the
+        per-chip, per-batch-row traces and rewrite the weights
+        (``plasticity.stdp_stream_step``), which the chips integrate from
+        the next step on.  The final state is ``StreamOut.plasticity``;
+        passed back as ``plasticity_state``, two windows equal one long
+        run bit for bit.  Composes with ``timed``, ``overlap`` and
+        ``faults`` (the state crosses reroute segments untouched).
+      plasticity_state: the initial state (needs ``plasticity``; default
+        zero traces over ``params.chips.weights``).  A
+        ``SlotPlasticityState`` switches to per-slot plasticity: every
+        batch row integrates and rewrites its own weight copy
+        (``chip.chip_step_slots``, ``plasticity.stdp_slot_step``), so the
+        rows are independent sessions, each equal to a batch-1 run.  The
+        caller's tensors are never written.
+      slot_mask: bool[T, batch]: a False ``(t, b)`` zeroes slot ``b``'s
+        spikes at step ``t`` before they are recorded, sent and seen by
+        plasticity (the neurons still integrate), and under per-slot
+        plasticity freezes the slot's traces and weights.
       device: where the run happens (default CUDA; raises if absent).
         Inputs are moved there.
 
@@ -234,7 +262,9 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
       ``StreamOut`` with the chips-first per-step outputs and the final
       state (delay line in shift order).
 
-    The argument checks raise the reference's ``ValueError``s in its order.
+    The argument checks raise the reference's ``ValueError``s in its order;
+    ``mode="dense"`` then raises ``NotImplementedError`` (ROADMAP.md queue
+    1, item 8).
     """
     if mode not in ("event", "dense"):
         raise ValueError(f"unknown mode: {mode!r}")
@@ -257,6 +287,14 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                          "dense surrogate has no wire to time)")
     if fault_mode not in ("mask", "reroute"):
         raise ValueError(f"unknown fault_mode: {fault_mode!r}")
+    if plasticity_state is not None and plasticity is None:
+        raise ValueError("plasticity_state without plasticity — pass the "
+                         "STDPConfig that should drive the update")
+    if slot_mask is not None and tuple(slot_mask.shape) != (
+            ext_drives.shape[0], ext_drives.shape[2]):
+        raise ValueError(f"slot_mask must be bool[T, batch] = "
+                         f"{(ext_drives.shape[0], ext_drives.shape[2])}, "
+                         f"got {tuple(slot_mask.shape)}")
     if faults is not None and mode != "event":
         raise ValueError("fault injection requires the event datapath (the "
                          "dense surrogate has no links to kill)")
@@ -289,11 +327,6 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
     if mode == "dense":
         raise NotImplementedError("dense mode is not ported yet "
                                   "(ROADMAP.md queue 1, item 8)")
-    for name, asked in (("plasticity", plasticity is not None),
-                        ("slot_mask", slot_mask is not None)):
-        if asked:
-            raise NotImplementedError(f"run_stream({name}=...) is not ported "
-                                      f"yet (ROADMAP.md queue 1, item 4)")
     device = resolve_device(device)
     if fabric is not None:
         plan = fabric
@@ -317,6 +350,17 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
     rows = ext_drives.shape[1:-1]
     timing = latlib.timed_wire(cfg.latency) if timed else None
     plans, sched = fault_segments(plan, faults, fault_mode, n_steps, device)
+    # Per-slot plasticity is chosen by the type of the initial state.
+    per_slot = isinstance(plasticity_state, plaslib.SlotPlasticityState)
+    plast = None
+    if plasticity is not None:
+        plast = (netlib.to_device(plasticity_state, device)
+                 if plasticity_state is not None
+                 else plaslib.init_stream_stdp(params.chips.weights,
+                                               ext_drives.shape[2]))
+    if slot_mask is not None:
+        slot_mask = torch.as_tensor(slot_mask).to(device=device,
+                                                  dtype=torch.bool)
 
     def route(spikes, t):
         """Step ``t``'s exchange (its plan and overlay); the overlap
@@ -330,7 +374,25 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         slot = t % delay
         # Ingress: the slot written `delay` steps ago.
         drive = ext_drives[t] + inflight[slot]
-        chips, spikes = chiplib.chip_step(params.chips, chips, drive, cfg.chip)
+        if per_slot:
+            chips, spikes = chiplib.chip_step_slots(params.chips, chips, drive,
+                                                    plast.weights, cfg.chip)
+        else:
+            # A plastic run integrates the evolving weights.
+            chip_params = (params.chips if plast is None
+                           else params.chips._replace(weights=plast.weights))
+            chips, spikes = chiplib.chip_step(chip_params, chips, drive,
+                                              cfg.chip)
+        mask_t = None if slot_mask is None else slot_mask[t]
+        if mask_t is not None:
+            # Before recording, egress and plasticity: an idle slot emits
+            # nothing.
+            spikes = torch.where(mask_t[None, :, None], spikes, 0.0)
+        if per_slot:
+            plast = plaslib.stdp_slot_step(plast, drive, spikes, plasticity,
+                                           mask=mask_t)
+        elif plast is not None:
+            plast = plaslib.stdp_stream_step(plast, drive, spikes, plasticity)
         if not overlap:
             # Egress: the consumed slot is the one due `delay` steps out.
             routed, *st = route(spikes, t)
@@ -348,7 +410,8 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                           dtype=chips.neurons.v.dtype, device=device))
     if overlap:
         # Epilogue: flush the last window (at zero steps the reference's
-        # zero window, whose drives land in slot delay - 1).
+        # zero window, whose drives land in slot delay - 1).  Deferred
+        # spikes were masked when they were produced.
         last = (rasters[-1] if rasters else
                 spikes.new_zeros((*rows, cfg.chip.n_neurons)))
         routed, *st = route(last, n_steps - 1)
@@ -373,4 +436,5 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
     return StreamOut(state=netlib.NetworkState(chips=chips, inflight=inflight),
                      spikes=spikes, dropped=dropped, uplink_dropped=uplink,
                      latency_ns=lat, latency_valid=lat_valid,
-                     unroutable=unroutable, rerouted=rerouted)
+                     unroutable=unroutable, rerouted=rerouted,
+                     plasticity=plast)

@@ -381,9 +381,7 @@ def test_latency_stats_match_reference():
                                      torch.zeros(lat.shape, dtype=bool))
 
 
-@pytest.mark.parametrize("kwargs", [dict(plasticity=object()),
-                                    dict(slot_mask=object()),
-                                    dict(mode="dense")])
+@pytest.mark.parametrize("kwargs", [dict(mode="dense")])
 def test_unported_options_raise(kwargs):
     cfg = tnet.NetworkConfig(n_chips=2, chip=tchip.ChipConfig(**SMALL_CHIP))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
