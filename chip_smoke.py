@@ -159,6 +159,9 @@ from repro_torch.snn import stream  # noqa: E402
 from repro_torch.core import latency  # noqa: E402
 from repro_torch.core.latency import timed_wire  # noqa: E402
 from repro_torch.snn import plasticity as plas  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
+from repro_torch.launch import serve_emulation  # noqa: E402
+from repro_torch.runtime import elastic, engine, watchdog  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(DEV).multi_processor_count
@@ -2402,6 +2405,384 @@ def phase12(launches: dict, gpu: str) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the durable runtime and the multi-tenant engine
+# ---------------------------------------------------------------------------
+
+WINDOW = 8                        # steps per supervised window / engine step
+CKPT_ROOT = pathlib.Path(__file__).resolve().parent / "build"
+ENGINE_SLOTS, ENGINE_SESSIONS = 8, 24
+ENGINE_LENGTHS = (16, 64)         # session lengths drawn from this range
+ENGINE_RATE = 0.15                # stimulus spike probability per chip-0 row
+
+
+def ckpt_mb(directory: str, step: int) -> float:
+    return sum(e["bytes"] for e in
+               ckpt.read_manifest(directory, step)["leaves"]) / 1e6
+
+
+def median_s(fn, n: int = 3) -> float:
+    """Median wall seconds of ``fn()`` over ``n`` calls, synchronised."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[n // 2]
+
+
+def phase13_supervised(launches: dict, gpu: str, tmp: pathlib.Path) -> None:
+    """(a) The supervised shared-plastic stream against one long run."""
+    name = "EXT_4CASE_96CHIP"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    state0 = netlib.init_state(cfg, BATCH, device=DEV)
+    drives = main_drives(cfg)
+    want = main_bodies(plan, "gather", True)
+    kw = dict(fabric=plan, plasticity=STDP, device=DEV)
+    dirs = itertools.count()
+
+    def plain(d=drives):
+        return stream.run_stream(params, state0, d, cfg, timed=True, **kw)
+
+    def supervised(d=drives, sync=False, **extra):
+        return elastic.run_supervised_stream(
+            params, state0, d, cfg, window=WINDOW,
+            ckpt_dir=str(tmp / f"sup{next(dirs)}"), keep=2,
+            stream_kwargs={"timed": True}, async_checkpoint=not sync,
+            **kw, **extra)
+
+    plain(drives[:4])                                       # warm-up
+    supervised(drives[:4])
+    torch.cuda.reset_peak_memory_stats(DEV)
+    outs, rates = in_turns({"plain": plain,
+                            "supervised": lambda: supervised()[0]},
+                           launches, {"plain": want, "supervised": want},
+                           rounds=3)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    long = outs["plain"]
+    assert_same_plastic("supervised (async writer) against one run",
+                        long, outs["supervised"])
+    sync_outs, sync_rates = in_turns(
+        {"plain": plain, "supervised sync": lambda: supervised(sync=True)[0]},
+        launches, {"plain": want, "supervised sync": want})
+    assert_same_plastic("supervised (sync) against one run", long,
+                        sync_outs["supervised sync"])
+
+    def per_boundary_ms(sup, base):
+        return (STEPS / np.median(sup) - STEPS / np.median(base)) / (
+            STEPS // WINDOW) * 1e3
+
+    # One boundary's save, verify and restore, timed on their own.
+    d = str(tmp / "boundary")
+    fp = elastic.stream_fingerprint(cfg, fabric=plan, plasticity=STDP)
+    steps = iter(range(0, 1000, WINDOW))
+    save_s = median_s(lambda: elastic.save_stream_state(
+        d, next(steps), long.state, plasticity=long.plasticity,
+        fingerprint=fp))
+    newest = ckpt.latest_step(d)
+    verify_s = median_s(lambda: ckpt._verify_dir(
+        str(pathlib.Path(d) / f"step_{newest:08d}")))
+    plast_like = netlib.init_stream_plasticity(params, BATCH)
+    restore_s = median_s(lambda: elastic.restore_stream_checkpoint(
+        d, state0, step=newest, plasticity_like=plast_like,
+        expect_fingerprint=fp, device=DEV))
+    mb = ckpt_mb(d, newest)
+    print(f"phase 13: {name}/timed supervised shared-plastic stream, batch "
+          f"{BATCH} x {STEPS} steps, window {WINDOW}, a checkpoint every "
+          f"window ({mb:.1f} MB each): equal bit for bit to one "
+          f"{STEPS}-step run with the async writer and with sync saves; "
+          f"launches by body {want} in every run, as phase 3's; steps/s in "
+          f"turns (plain, supervised, supervised, plain) x 3: plain "
+          f"{', '.join(f'{r:.1f}' for r in rates['plain'])}; supervised "
+          f"{', '.join(f'{r:.1f}' for r in rates['supervised'])}; sync "
+          f"saves in turns x 1: plain "
+          f"{', '.join(f'{r:.1f}' for r in sync_rates['plain'])}; "
+          f"supervised sync "
+          f"{', '.join(f'{r:.1f}' for r in sync_rates['supervised sync'])}; "
+          f"cost per boundary over plain (medians): async "
+          f"{per_boundary_ms(rates['supervised'], rates['plain']):.1f} ms, "
+          f"sync {per_boundary_ms(sync_rates['supervised sync'], sync_rates['plain']):.1f} ms; "
+          f"one boundary alone: save {save_s * 1e3:.1f} ms (card to host, "
+          f"sha256, fsync, rename), verify {verify_s * 1e3:.1f} ms, restore "
+          f"{restore_s * 1e3:.1f} ms (sha256, host to card); peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB [{gpu}]", flush=True)
+    print(f"phase 13: {name}/timed supervised shared-plastic stream: "
+          + device_breakdown(lambda: supervised(drives[:2 * WINDOW]),
+                             per=2 * WINDOW) + f" [{gpu}]", flush=True)
+
+    # A kill at step 32's boundary (pre_rename), then a resume.
+    d = str(tmp / "killed")
+    half = STEPS // 2
+    pre, _ = elastic.run_supervised_stream(
+        params, state0, drives[:half], cfg, window=WINDOW, ckpt_dir=d,
+        stream_kwargs={"timed": True}, async_checkpoint=False, **kw)
+    ckpt.set_crash_point("pre_rename")
+    try:
+        elastic.save_stream_state(d, half, pre.state,
+                                  plasticity=pre.plasticity, fingerprint=fp)
+        raise AssertionError("the armed crash point did not fire")
+    except ckpt.CrashInjected:
+        pass
+    finally:
+        ckpt.set_crash_point(None)
+    out, info = elastic.resume_supervised_stream(
+        params, state0, drives, cfg, window=WINDOW, ckpt_dir=d,
+        stream_kwargs={"timed": True}, **kw)
+    s = info["resumed_step"]
+    if s != half - WINDOW:
+        raise AssertionError(f"resumed at {s}, expected {half - WINDOW}")
+    assert_same_plastic(f"resumed at step {s} against the long run's tail",
+                        long._replace(**{f: getattr(long, f)[s:]
+                                         for f in STREAM_FIELDS}), out)
+
+    # The watchdog fires on a stalled window and recovery continues on a
+    # degraded plan: equal to a direct degraded run from the checkpoint.
+    d = str(tmp / "recovered")
+    degraded = fablib.compile_fabric(fablib.degrade_spec(plan.spec,
+                                                         [(1, 0)]))
+    wd = watchdog.StepWatchdog(watchdog.WatchdogConfig(
+        deadline_factor=1.0, min_deadline_s=0.5, ema_alpha=1.0,
+        refractory_s=5.0))
+    stalled = 2
+
+    def stall(widx):
+        if widx == stalled:
+            time.sleep(1.0)
+
+    t0 = time.perf_counter()
+    out, recs = elastic.run_supervised_stream(
+        params, state0, drives, cfg, window=WINDOW, ckpt_dir=d, watchdog=wd,
+        on_recover=lambda w, p: degraded, stall_probe=stall,
+        stream_kwargs={"timed": True}, **kw)
+    wall = time.perf_counter() - t0
+    at = stalled * WINDOW
+    if [(r["window"], r["restored_step"]) for r in recs] != [(stalled, at)]:
+        raise AssertionError(f"recoveries {recs}")
+    ck = elastic.restore_stream_checkpoint(d, state0, step=at,
+                                           plasticity_like=plast_like,
+                                           expect_fingerprint=fp, device=DEV)
+    direct = stream.run_stream(params, ck.state, drives[at:], cfg, timed=True,
+                               fabric=degraded, plasticity=STDP,
+                               plasticity_state=ck.plasticity, device=DEV)
+    for f in STREAM_FIELDS:
+        parity.assert_equal(f"recovered {f} before step {at}",
+                            getattr(long, f)[:at], getattr(out, f)[:at])
+    assert_same_plastic("recovered against a direct degraded run",
+                        direct, out._replace(**{f: getattr(out, f)[at:]
+                                                for f in STREAM_FIELDS}))
+    rerouted = int(out.rerouted[at:].sum())
+    if not rerouted:
+        raise AssertionError("the degraded plan rerouted nothing")
+    print(f"phase 13: {name}/timed supervised: a pre_rename kill at step "
+          f"{half} resumed from step {s}, the tail equal bit for bit to the "
+          f"long run's; the watchdog (deadline max(0.5 s, last window)) "
+          f"fired on window {stalled} (stalled 1 s), recovery from step "
+          f"{at} onto {degraded.describe()!r} equal bit for bit to a direct "
+          f"degraded run from that checkpoint ({rerouted} events "
+          f"rerouted), {wall:.2f} s in all [{gpu}]", flush=True)
+
+
+def engine_stims(cfg, n: int, lengths, rate: float, seed: int,
+                 dyadic: bool = False) -> list[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        L = int(rng.integers(lengths[0], lengths[1] + 1))
+        stim = (rng.random((L, cfg.chip.n_rows)) < rate).astype(np.float32)
+        if dyadic:
+            stim *= rng.integers(4, 20, stim.shape) / 16
+        out.append(stim.astype(np.float32))
+    return out
+
+
+def batch_one(params, cfg, plan, stim, device):
+    """A session's batch-1 ``run_stream`` (chip 0 driven, per-slot
+    plasticity, timed)."""
+    drives = torch.zeros((stim.shape[0], cfg.n_chips, 1, cfg.chip.n_rows),
+                         device=device)
+    drives[:, 0, 0] = torch.from_numpy(stim).to(device)
+    return stream.run_stream(
+        params, netlib.init_state(cfg, 1, device=device), drives, cfg,
+        fabric=plan, timed=True, plasticity=STDP,
+        plasticity_state=netlib.init_slot_plasticity(params, 1),
+        device=device)
+
+
+def same_session(what: str, r, out=None, other=None) -> None:
+    """A ``SessionResult`` against a batch-1 ``StreamOut`` or another
+    ``SessionResult``, bit for bit."""
+    if out is not None:
+        lat = stream.masked_latency_stats(out.latency_ns, out.latency_valid,
+                                          strict=False)
+        other = engine.SessionResult(
+            session_id=r.session_id, steps=out.spikes.shape[0],
+            spikes=out.spikes[:, :, 0].cpu().numpy(),
+            spike_count=int(out.spikes.sum()), latency=lat,
+            plasticity=type(out.plasticity)(
+                *(x[:, 0].cpu().numpy() for x in out.plasticity)),
+            submitted_at=0.0, finished_at=0.0,
+            **{k: int(getattr(out, k).sum()) for k in
+               ("dropped", "uplink_dropped", "unroutable", "rerouted")})
+    for f in ("steps", "spike_count", "dropped", "uplink_dropped",
+              "unroutable", "rerouted"):
+        if getattr(r, f) != getattr(other, f):
+            raise AssertionError(f"{what} {f}: {getattr(r, f)} != "
+                                 f"{getattr(other, f)}")
+    parity.assert_equal(f"{what} spikes", other.spikes, r.spikes)
+    a, b = r.latency, other.latency
+    if a["count"] != b["count"] or any(
+            a[k] != b[k] for k in a if not (np.isnan(a[k]) and
+                                            np.isnan(b[k]))):
+        raise AssertionError(f"{what} latency {a} != {b}")
+    for x, y in zip(r.plasticity, other.plasticity, strict=True):
+        parity.assert_equal(f"{what} plasticity", y, x)
+
+
+def phase13_engine(launches: dict, gpu: str, tmp: pathlib.Path) -> None:
+    """(b) The engine at full chip width against batch-1 runs; (c) the
+    engine on the card against the CPU."""
+    name = "EXT_4CASE_96CHIP"
+    cfg, params, plan = scenarios.engine_network(name, device=DEV)
+    stims = engine_stims(cfg, ENGINE_SESSIONS, ENGINE_LENGTHS, ENGINE_RATE,
+                         seed=13)
+    eng = engine.EmulationEngine(params, cfg, slots=ENGINE_SLOTS,
+                                 max_steps=ENGINE_LENGTHS[1], window=WINDOW,
+                                 plan=plan, timed=True, plasticity=STDP,
+                                 device=DEV)
+    eng.warm()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    sids = [eng.submit(s) for s in stims]
+    windows = itertools.count(1)
+
+    def drain():
+        n = 0
+        while eng.active or eng.queued:
+            eng.step()
+            n = next(windows)
+        return n
+
+    n_windows, wall, paths = counted(drain)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    expect_bodies("engine", paths, {"merge_pack warp": WINDOW * n_windows},
+                  launches)
+    results = [eng.collect(sid) for sid in sids]
+    seq_wall, spikes, events = 0.0, 0, 0
+    for r, stim in zip(results, stims):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = batch_one(params, cfg, plan, stim, DEV)
+        torch.cuda.synchronize()
+        seq_wall += time.perf_counter() - t0
+        same_session(f"session {r.session_id} against its batch-1 run", r,
+                     out=out)
+        spikes += r.spike_count
+        events += r.latency["count"]
+    if not spikes or not events:
+        raise AssertionError(f"engine: {spikes} spikes, {events} events")
+    steps = sum(s.shape[0] for s in stims)
+    print(f"phase 13: {name}/timed engine, S={ENGINE_SLOTS} slots, "
+          f"per-slot plasticity, window {WINDOW}: {ENGINE_SESSIONS} sessions "
+          f"of {min(s.shape[0] for s in stims)}-"
+          f"{max(s.shape[0] for s in stims)} steps ({steps} session-steps, "
+          f"{spikes} spikes, {events} delivered events) in {n_windows} "
+          f"windows, each session equal bit for bit to its batch-1 "
+          f"run_stream (spikes, 4 drop fields, latency statistics, "
+          f"plasticity row); launches by body {paths}; "
+          f"{ENGINE_SESSIONS / wall:.2f} experiments/s batched "
+          f"({wall:.2f} s) against {ENGINE_SESSIONS / seq_wall:.2f} "
+          f"sequential batch-1 ({seq_wall:.2f} s): "
+          f"{seq_wall / wall:.2f}x; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB [{gpu}]", flush=True)
+    for s in stims[:ENGINE_SLOTS]:
+        eng.submit(s)
+    print(f"phase 13: {name}/timed engine: " + device_breakdown(
+        lambda: [eng.step() for _ in range(2)], per=2 * WINDOW,
+        unit="session-step") + f" [{gpu}]", flush=True)
+    eng.drain()
+    for sid in eng.done:
+        eng.collect(sid)
+
+    # Evict after two windows, restore into a busy engine, finish.
+    first = eng.submit(stims[0])
+    for s in stims[1:ENGINE_SLOTS]:
+        eng.submit(s)
+    eng.step()
+    eng.step()
+    d = str(tmp / "evicted")
+    partial = eng.evict(first, d)
+    resumed = eng.submit(stims[0], restore_from=d)
+    eng.drain()
+    rest = eng.collect(resumed)
+    whole = results[0]
+    parity.assert_equal("evicted and restored: stitched spikes",
+                        whole.spikes,
+                        np.concatenate([partial.spikes, rest.spikes]))
+    for f in ("steps", "spike_count", "dropped", "uplink_dropped",
+              "unroutable", "rerouted"):
+        if getattr(partial, f) + getattr(rest, f) != getattr(whole, f):
+            raise AssertionError(f"evicted and restored: {f}")
+    if (partial.latency["count"] + rest.latency["count"]
+            != whole.latency["count"]):
+        raise AssertionError("evicted and restored: latency count")
+    for x, y in zip(rest.plasticity, whole.plasticity, strict=True):
+        parity.assert_equal("evicted and restored: plasticity", y, x)
+    print(f"phase 13: {name}/timed engine: session 0 evicted after "
+          f"{partial.steps} steps ({ckpt_mb(d, partial.steps):.1f} MB) and "
+          f"restored into a busy engine: the stitched session equals the "
+          f"uninterrupted one bit for bit [{gpu}]", flush=True)
+
+    # The serving CLI, once, at full width.
+    t0 = time.perf_counter()
+    _, _, paths = counted(lambda: serve_emulation.main(
+        ["--scenario", name, "--sessions", "12", "--slots", "4", "--timed",
+         "--plastic", "--rate", str(ENGINE_RATE)]))
+    if set(paths) != {"merge_pack warp"}:
+        raise AssertionError(f"serve_emulation launched {paths}")
+    launches["merge_pack"] += paths["merge_pack warp"]
+    print(f"phase 13: serve_emulation.main() on the card in "
+          f"{time.perf_counter() - t0:.1f} s, launches by body {paths} "
+          f"[{gpu}]", flush=True)
+
+    # (c) The card against the CPU on a short engine run: FULL_BACKPLANE,
+    # dyadic weights and stimuli, 4 slots, windows of 4 steps.
+    name = "FULL_BACKPLANE"
+    results = {}
+    t0 = time.perf_counter()
+    for side, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        cfg, params, plan = scenarios.engine_network(name, device=dev)
+        params = params._replace(chips=params.chips._replace(
+            w_scale=torch.full_like(params.chips.w_scale, 2.0 ** -8)))
+        stims = engine_stims(cfg, 6, (4, 8), 0.3, seed=14, dyadic=True)
+        eng = engine.EmulationEngine(params, cfg, slots=4, max_steps=8,
+                                     window=4, plan=plan, timed=True,
+                                     plasticity=STDP, device=dev)
+        sids = [eng.submit(s) for s in stims]
+        eng.drain()
+        results[side] = [eng.collect(sid) for sid in sids]
+    for a, b in zip(results["cpu"], results["card"], strict=True):
+        same_session(f"{name} session {a.session_id} card against CPU", b,
+                     other=a)
+    spikes = sum(r.spike_count for r in results["cpu"])
+    if not spikes:
+        raise AssertionError(f"{name} engine: no spikes to compare")
+    print(f"phase 13: {name}/timed engine, S=4, per-slot plasticity, "
+          f"window 4, {len(stims)} sessions of 4-8 steps: card == CPU "
+          f"session for session bit for bit ({spikes} spikes), "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
+
+
+def phase13(launches: dict, gpu: str) -> None:
+    import tempfile
+
+    CKPT_ROOT.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CKPT_ROOT,
+                                     prefix="phase13-") as tmp:
+        phase13_supervised(launches, gpu, pathlib.Path(tmp))
+        phase13_engine(launches, gpu, pathlib.Path(tmp))
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -2439,6 +2820,7 @@ def main() -> None:
     timed_phase("10", lambda: phase10(launches, gpu, healthy))
     timed_phase("11", lambda: phase11(gpu))
     timed_phase("12", lambda: phase12(launches, gpu))
+    timed_phase("13", lambda: phase13(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

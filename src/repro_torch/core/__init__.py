@@ -26,6 +26,9 @@ from repro_torch.core.aggregator import (  # noqa: F401
     RouterState, ExchangeDrops, identity_router, route_step,
     route_step_baseline, route_step_hierarchical,
 )
+from repro_torch.core.sync import (  # noqa: F401
+    SyncConfig, barrier, barrier_release_time, refractory_mask,
+)
 from repro_torch.core.latency import (  # noqa: F401
     LatencyParams, DEFAULT_PARAMS, simulate_fan_in, latency_statistics,
     biological_latency_ms, queue_wait_ns, queue_wait_i32, hop_delays,

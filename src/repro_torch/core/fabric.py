@@ -181,6 +181,10 @@ class FabricPlan:
         return len(self.levels)
 
     @property
+    def fan_ins(self) -> tuple[int, ...]:
+        return tuple(lvl.fan_in for lvl in self.levels)
+
+    @property
     def compact(self) -> bool:
         """Every merge segment is front-compacted (leaf lanes packed)."""
         return self.levels[0].link_capacity is not None
@@ -215,6 +219,17 @@ class FabricPlan:
                 segs_u = ((nxt.link_capacity,) if nxt.link_capacity is not None
                           else segs_u * lvl.fan_in)
         return tuple(out)
+
+    def describe(self) -> str:
+        """One-line human summary ('12 x 2 x 4 = 96 leaves, ...'), the
+        reference's string: stream checkpoints and recovery records carry
+        it."""
+        shape = " x ".join(str(f) for f in self.fan_ins)
+        caps = "/".join("-" if lvl.link_capacity is None
+                        else str(lvl.link_capacity) for lvl in self.levels)
+        name = f"{self.spec.name}: " if self.spec.name else ""
+        return (f"{name}{shape} = {self.n_nodes} leaves, "
+                f"capacity {self.capacity}, uplink caps {caps}")
 
 
 def _parse_health(raw, n_edges: int, what: str) -> np.ndarray | None:
