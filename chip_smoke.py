@@ -104,6 +104,30 @@ Phases, each reported on its own lines:
    row against a batch-1 run; peak device memory, a profiler pass over 8
    plastic steps, and phase 4's card-against-CPU check on 16 plastic
    steps with the flips judged on the evolving weights.
+13. The durable runtime and the multi-tenant engine at full chip width:
+   the supervised shared-plastic stream against one long run, a kill and
+   resume, a watchdog recovery onto a degraded plan, the engine's sessions
+   against batch-1 runs, an evicted session, ``serve_emulation`` and the
+   engine on the card against the CPU.
+14. The sharded fabric executor on ``torch.distributed``: gloo ranks that
+   all use the one card (NCCL takes one card per rank), so the merge_pack
+   kernel runs on the card and the wire goes through host memory.  (a)
+   FULL_BACKPLANE at full width on 12 ranks (cap_in 64, capacity 256) at
+   the catalogue's 5% and at 50% occupancy, 64 rounds through
+   ``FabricInterconnect.stream_fn`` and through 64 ``exchange_fn`` calls,
+   gather and routed, untimed and timed; (b) EXT_4CASE_96CHIP's three
+   levels at fan-in 2 on 8 ranks (cap_in 24, capacity 96, the twin's
+   ``level_caps``), healthy, one dead uplink, exhausted and a health
+   overlay, in the same four ways, 64 rounds through ``stream_fn`` and
+   the first 16 through ``exchange_fn``; (c) ``StarInterconnect``: the
+   star on 12 ranks and the 3 x 4 hierarchy, with and without the uplink
+   caps, likewise, and ``barrier`` all ready and one rank not ready.  The
+   meshes are the card's (``fabric_mesh(plan)`` at its default).  Every
+   rank equals the stacked executor on the card and on the CPU bit for
+   bit (labels, valid, times, the four drop fields), the stream equals
+   the loop, merge_pack launches are checked per rank by body over every
+   call, routed rounds make no all-gather, and the wire bytes a rank
+   receives match the plan; µs a round a rank for both entry points.
 
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -117,6 +141,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -138,7 +163,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import aggregator as agg  # noqa: E402
 from repro_torch.core import fabric as fablib  # noqa: E402
 from repro_torch.core import routing  # noqa: E402
-from repro_torch.core.events import make_frame  # noqa: E402
+from repro_torch.core import sync  # noqa: E402
+from repro_torch.core.events import EventFrame, make_frame  # noqa: E402
 from repro_torch.kernels import INT, PTR, _build, check  # noqa: E402
 from repro_torch.kernels import launcher  # noqa: E402
 from repro_torch.kernels import stream as cuda_stream  # noqa: E402
@@ -153,6 +179,7 @@ from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
 from repro_torch.kernels.spike_router import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.snn import network as netlib  # noqa: E402
 from repro_torch.snn import neuron as nrn  # noqa: E402
 from repro_torch.snn import stream  # noqa: E402
@@ -2783,6 +2810,384 @@ def phase13(launches: dict, gpu: str) -> None:
         phase13_engine(launches, gpu, pathlib.Path(tmp))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded fabric executor on torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_ROUNDS = 64
+# Rounds through exchange_fn: all 64 on FULL_BACKPLANE; the first 16 on the
+# 3-level twin and the legacy jobs, whose 64 rounds go through stream_fn
+# (each exchange_fn round waits on gloo's per-message latency).
+SHARD_LOOP_SHORT = 16
+SHARD_STREAM_REPEATS = 3
+SHARD_OCCS = (OCC, 0.5)
+# EXT_4CASE_96CHIP's three levels at fan-in 2 each: 96 ranks do not fit one
+# card, so the 3-level plan runs on 8 (as the reference's own 8-device tests
+# shrink it), at EXT_4CASE_96CHIP's cap_in and ingress capacity.
+EXT_TWIN = (2, 2, 2)
+SHARD_FIELDS = ("labels", "times", "valid", "congestion", "uplink",
+                "unroutable", "rerouted")
+
+
+def shard_inputs(seed: int, n: int, cap_in: int, occ: float) -> dict:
+    """SHARD_ROUNDS rounds of n egress frames (labels over 16 bits, each
+    raw slot valid with ``occ``, departures in [0, 1000) ns) compacted by
+    ``make_frame``, and random LUTs (about 15% of entries off), as host
+    numpy for the ranks."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (SHARD_ROUNDS, n, cap_in)
+    frame, _ = make_frame(
+        torch.randint(0, 1 << 16, shape, generator=gen, device=DEV,
+                      dtype=torch.int32),
+        torch.randint(0, 1000, shape, generator=gen, device=DEV,
+                      dtype=torch.int32),
+        torch.rand(shape, generator=gen, device=DEV) < occ, cap_in)
+    d = dict(zip(("labels", "times", "valid"), frame))
+    d["fwd"] = lut(gen, n, 1 << 16, 15, 15)
+    d["rev"] = lut(gen, n, 1 << 15, 16, 16)
+    return {k: v.cpu().numpy() for k, v in d.items()}
+
+
+def health_on(spec, plan, device):
+    """A ``FabricHealth`` overlay from ``{(side, level): dead edges}``."""
+    if spec is None:
+        return None
+    sides = {"uplink": [None] * plan.n_levels,
+             "downlink": [None] * plan.n_levels}
+    for (side, level), dead in spec.items():
+        vec = torch.ones(plan.edge_counts[level], dtype=torch.bool)
+        vec[list(dead)] = False
+        sides[side][level] = vec.to(device)
+    return fablib.FabricHealth(uplink=tuple(sides["uplink"]),
+                               downlink=tuple(sides["downlink"]))
+
+
+def wire_per_level(plan, cap_in: int, timed: bool) -> list[int]:
+    """Bytes one rank receives per round at each level: f - 1 rows of the
+    level's stream, 2 B a wire word and 4 B a timestamp (gather; routed
+    on these plans' enables, which prune no pair, the same)."""
+    return [(lvl.fan_in - 1) * (sum(seg) // lvl.fan_in) * (2 + 4 * timed)
+            for lvl, seg in zip(plan.levels, plan.merge_layout(cap_in))]
+
+
+def shard_wire() -> dict:
+    return dict(gathers=fablib._gather_plane.calls,
+                gather_bytes=fablib._gather_plane.bytes,
+                sends=fablib._routed_plane.sends,
+                p2p_bytes=fablib._routed_plane.bytes)
+
+
+def reset_shard_wire() -> None:
+    fablib._gather_plane.calls = fablib._gather_plane.bytes = 0
+    fablib._routed_plane.sends = fablib._routed_plane.recvs = 0
+    fablib._routed_plane.bytes = 0
+
+
+def phase14_rank(rank: int, world: int, data: dict, jobs: list,
+                 barriers: bool) -> dict:
+    """One rank of phase 14 (a gloo process group whose ranks all use
+    cuda:0): each job's SHARD_ROUNDS rounds through ``stream_fn``
+    (SHARD_STREAM_REPEATS calls) and its first ``job["loop"]`` rounds
+    through one ``exchange_fn`` call each.  The counts are set to 0 just
+    before the stream's repeats and read just after them, and the same
+    around the loop; the loop must equal the stream's rounds bit for bit.
+    The meshes are the card's, as a user builds them: ``fabric_mesh(plan)``
+    at its default device type for the fabric jobs and a ``"cuda"``
+    ``init_device_mesh`` for the legacy ones.  Returns the stream's
+    outputs, wall times, launches by body and wire counters by job, and
+    with ``barriers`` the barriers on the legacy jobs' star and 3 x 4
+    meshes (all ready; rank 3 not ready)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)            # every rank uses the one card
+    # The ranks share the host's cores: one thread each for host-side work.
+    torch.set_num_threads(1)
+    meshes, out = {}, {}
+    for job in jobs:
+        dims = job["dims"]
+        if dims not in meshes:
+            names, shape = zip(*dims)
+            meshes[dims] = (
+                sharding.fabric_mesh(job["plan"]) if job["kind"] == "fabric"
+                else init_device_mesh("cuda", shape, mesh_dim_names=names))
+            if meshes[dims].device_type != "cuda":
+                raise AssertionError(f"{dims}: a "
+                                     f"{meshes[dims].device_type} mesh")
+        mesh = meshes[dims]
+        d = data[job["data"]]
+        frames = EventFrame(*(torch.from_numpy(d[k][:, rank]).to(DEV)
+                                     for k in ("labels", "times", "valid")))
+        args = [torch.from_numpy(d[k][rank]).to(DEV) for k in ("fwd", "rev")]
+        if job["kind"] == "fabric":
+            ic = fablib.FabricInterconnect(
+                mesh, job["plan"], timing=job["timing"],
+                health=health_on(job["health"], job["plan"], DEV))
+            stream_fn, exchange_fn = ic.stream_fn(), ic.exchange_fn()
+        else:
+            ic = agg.StarInterconnect(mesh, "chip", timing=job["timing"],
+                                      **job["star"])
+            stream_fn, exchange_fn = ic.stream_fn(), ic.exchange_fn()
+            args += [torch.from_numpy(e).to(DEV) for e in job["enables"]]
+        rounds = [EventFrame(*(x[t] for x in frames))
+                  for t in range(job["loop"])]
+        exchange_fn(rounds[0], *args)                  # warm: load, connect
+        res = dict(stream_s=[])
+        reset_counts(ops.fused_merge_pack)
+        reset_shard_wire()
+        for _ in range(SHARD_STREAM_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, dr = stream_fn(frames, *args)
+            torch.cuda.synchronize()
+            res["stream_s"].append(time.perf_counter() - t0)
+        res["stream_paths"] = dict(ops.fused_merge_pack.launches_by_path)
+        res["stream_wire"] = shard_wire()
+        reset_counts(ops.fused_merge_pack)
+        reset_shard_wire()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop = [exchange_fn(fr, *args) for fr in rounds]
+        torch.cuda.synchronize()
+        res["loop_s"] = time.perf_counter() - t0
+        res["loop_paths"] = dict(ops.fused_merge_pack.launches_by_path)
+        res["loop_wire"] = shard_wire()
+        stream = (*o, *dr)
+        for i, name in enumerate(SHARD_FIELDS):
+            got = torch.stack([(*lo, *ld)[i] for lo, ld in loop])
+            if not torch.equal(got, stream[i][:job["loop"]]):
+                raise AssertionError(f"rank {rank} {job['key']}: "
+                                     f"{job['loop']} exchange_fn calls != "
+                                     f"stream_fn's rounds ({name})")
+        res["out"] = [x.cpu().numpy() for x in stream]
+        out[job["key"]] = res
+    if barriers:
+        star = meshes[(("chip", world),)]
+        hier = meshes[(("pod", 3), ("chip", 4))]
+        out["barrier"] = [
+            bool(sync.barrier(torch.tensor(ready, device=DEV), axis, mesh))
+            for ready, axis, mesh in ((True, "chip", star),
+                                      (rank != 3, "chip", star),
+                                      (rank != 3, "chip", hier),
+                                      (rank != 3, "pod", hier))]
+    return out
+
+
+def fabric_jobs(name: str, plan, data: str, health_specs: dict,
+                loop: int) -> list:
+    """Phase 14's fabric jobs on ``plan``: every health variant in
+    ``health_specs`` (variant -> (plan, overlay)), gather and routed,
+    untimed and timed, with ``loop`` rounds through ``exchange_fn``."""
+    dims = tuple((f"fab{i}", f) for i, f in reversed(list(enumerate(
+        plan.fan_ins))))
+    jobs = []
+    for variant, (vplan, overlay) in health_specs.items():
+        for mode in fablib.EXCHANGE_MODES:
+            for timed in (False, True):
+                jobs.append(dict(
+                    key=f"{name}/{variant}/{mode}/"
+                        f"{'timed' if timed else 'untimed'}",
+                    kind="fabric", dims=dims, data=data, loop=loop,
+                    plan=fablib.with_exchange_mode(vplan, mode),
+                    timing=timed_wire() if timed else None, health=overlay))
+    return jobs
+
+
+def stacked_reference(job, d: dict, device) -> list:
+    """The job's rounds through the stacked executor on ``device`` (batch
+    = rounds): ``fabric_route_step`` on the job's plan, ``route_step``
+    (congestion only; the other drops 0) for the plain star, and
+    ``route_step_hierarchical`` for the hierarchy."""
+    frames = EventFrame(*(torch.from_numpy(d[k]).to(device)
+                                 for k in ("labels", "times", "valid")))
+    fwd, rev = (torch.from_numpy(d[k]).to(device) for k in ("fwd", "rev"))
+    if job["kind"] == "fabric":
+        out, drops = fablib.fabric_route_step(
+            agg.RouterState(fwd, rev, None), frames, job["plan"],
+            timing=job["timing"],
+            health=health_on(job["health"], job["plan"], device))
+        return [x.cpu().numpy() for x in (*out, *drops)]
+    star = job["star"]
+    en = [torch.from_numpy(e).to(device) for e in job["enables"]]
+    state = agg.RouterState(fwd, rev, en[0])
+    if len(en) == 2:
+        out, drops = agg.route_step_hierarchical(
+            state, frames, star["capacity"], n_pods=en[1].shape[0],
+            intra_enables=en[0], inter_enables=en[1],
+            link_capacity=star.get("link_capacity"),
+            pod_capacity=star.get("pod_capacity"), timing=job["timing"])
+    elif star.get("link_capacity") is None:
+        out, congestion = agg.route_step(state, frames, star["capacity"],
+                                         timing=job["timing"])
+        zero = torch.zeros_like(congestion)
+        drops = (congestion, zero, zero, zero)
+    else:
+        # route_step takes no link capacity: its plan with the lane cap.
+        out, drops = fablib.fabric_route_step(
+            state, frames, fablib.compile_fabric(fablib.star_spec(
+                en[0].shape[0], star["capacity"], enables=en[0],
+                link_capacity=star["link_capacity"])), timing=job["timing"])
+    return [x.cpu().numpy() for x in (*out, *drops)]
+
+
+def job_plan(job):
+    """The plan a job's round compiles (the legacy jobs' from their
+    enables, as ``star_exchange`` / ``hierarchical_exchange`` do)."""
+    if job["kind"] == "fabric":
+        return job["plan"]
+    star = job["star"]
+    en = job["enables"]
+    if len(en) == 1:
+        return fablib.compile_fabric(fablib.star_spec(
+            en[0].shape[0], star["capacity"], enables=en[0],
+            link_capacity=star.get("link_capacity")))
+    return fablib.compile_fabric(fablib.hierarchical_spec(
+        n_pods=en[1].shape[0], per_pod=en[0].shape[0],
+        capacity=star["capacity"], intra_enables=en[0], inter_enables=en[1],
+        link_capacity=star.get("link_capacity"),
+        pod_capacity=star.get("pod_capacity")))
+
+
+def phase14_group(world: int, data: dict, jobs: list, launches: dict,
+                  gpu: str, barriers: bool = False) -> list:
+    """Runs ``jobs`` on ``world`` gloo ranks sharing the card, checks every
+    rank against the stacked executor on the card and on the CPU, the
+    launches by body and the wire counters, prints a line per job and adds
+    the ranks' launches to ``launches``.  Returns the ranks' results."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase14_rank, world, data, jobs, barriers,
+                      timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    for job in jobs:
+        d = data[job["data"]]
+        plan = job_plan(job)
+        cap_in = d["labels"].shape[-1]
+        timed = job["timing"] is not None
+        # [rank, round, ...] -> [round, rank, ...], the stacked layout.
+        got = [np.swapaxes(np.stack([r[job["key"]]["out"][i] for r in ranks]),
+                           0, 1) for i in range(len(SHARD_FIELDS))]
+        for side, dev in (("card", DEV), ("CPU", torch.device("cpu"))):
+            want = stacked_reference(job, d, dev)
+            for name, g, w in zip(SHARD_FIELDS, got, want, strict=True):
+                if not np.array_equal(g, w):
+                    raise AssertionError(
+                        f"{job['key']}: {name} of the {world} ranks != the "
+                        f"stacked executor on the {side}")
+        merged = sum(map(sum, plan.merge_layout(cap_in)))
+        body = f"merge_pack {ops.merge_pack_body_for(merged)}"
+        levels = wire_per_level(plan, cap_in, timed)
+        routed = plan.exchange_mode == "routed"
+        for rank, r in enumerate(ranks):
+            res = r[job["key"]]
+            for what, paths, n in (("stream_fn", res["stream_paths"],
+                                    SHARD_STREAM_REPEATS),
+                                   ("exchange_fn loop", res["loop_paths"],
+                                    job["loop"])):
+                paths = {f"merge_pack {k}": v for k, v in paths.items() if v}
+                if paths != {body: n}:
+                    raise AssertionError(f"{job['key']} rank {rank} {what}: "
+                                         f"launches by body {paths}, "
+                                         f"expected {{{body!r}: {n}}}")
+            wire = res["loop_wire"]
+            moved = wire["p2p_bytes"] if routed else wire["gather_bytes"]
+            if (moved != job["loop"] * sum(levels)
+                    or (routed and wire["gathers"])
+                    or (not routed and wire["sends"])):
+                raise AssertionError(f"{job['key']} rank {rank}: wire "
+                                     f"{wire}, expected {sum(levels)} B a "
+                                     f"round by {plan.exchange_mode}")
+            launches["merge_pack"] += (sum(res["stream_paths"].values())
+                                       + sum(res["loop_paths"].values()))
+        stream_us = [np.median(r[job["key"]]["stream_s"]) / SHARD_ROUNDS
+                     * 1e6 for r in ranks]
+        loop_us = [r[job["key"]]["loop_s"] / job["loop"] * 1e6
+                   for r in ranks]
+        drops = ", ".join(f"{n} {int(g.sum())}" for n, g in
+                          zip(SHARD_FIELDS[3:], got[3:]))
+        print(f"phase 14: {job['key']}: {world} gloo ranks on the card, "
+              f"{SHARD_ROUNDS} rounds (cap_in {cap_in}); every rank == the "
+              f"stacked executor on the card and on the CPU bit for bit "
+              f"({int(got[2].sum())} events delivered; {drops}); "
+              f"{job['loop']} exchange_fn calls == stream_fn's first "
+              f"{job['loop']} rounds; launches per rank: {body} "
+              f"x{SHARD_STREAM_REPEATS} over {SHARD_STREAM_REPEATS} stream_fn "
+              f"calls, x{job['loop']} the loop; "
+              f"{plan.exchange_mode}: {wire['gathers']} all-gathers, "
+              f"{wire['sends']} sends a rank over the loop, wire bytes "
+              f"received a rank a round by level {levels} (transport gloo "
+              f"through host memory); us a round a rank (median, max over "
+              f"ranks): stream_fn {np.median(stream_us):.1f}, "
+              f"{max(stream_us):.1f}; exchange_fn {np.median(loop_us):.1f}, "
+              f"{max(loop_us):.1f} [{gpu}]", flush=True)
+    print(f"phase 14: {len(jobs)} jobs on {world} ranks sharing the card "
+          f"(gloo; NCCL needs a card per rank) in {ranks_s:.1f} s [{gpu}]",
+          flush=True)
+    return ranks
+
+
+def phase14(launches: dict, gpu: str) -> None:
+    # (a) FULL_BACKPLANE at full width on 12 ranks, both occupancies; (c)
+    # the legacy star on 12 ranks and the hierarchy on 3 x 4.
+    _, fan_ins, cap_in, cap = next(c for c in scenarios.CASES
+                                   if c[0] == "FULL_BACKPLANE")
+    n = fan_ins[0]
+    data, jobs = {}, []
+    plan = scenarios.plan_for(fan_ins, cap, scenarios.level_caps(
+        fan_ins, cap_in, OCC))
+    for occ in SHARD_OCCS:
+        key = f"FULL_BACKPLANE@{occ:g}"
+        data[key] = shard_inputs(14, n, cap_in, occ)
+        jobs += fabric_jobs(key, plan, key, {"healthy": (plan, None)},
+                            loop=SHARD_ROUNDS)
+    star_en = ~np.eye(n, dtype=bool)
+    intra, inter = ~np.eye(4, dtype=bool), np.ones((3, 3), bool)
+    legacy = (("star", dict(capacity=cap), (star_en,), None),
+              ("star/link 16", dict(capacity=cap, link_capacity=16),
+               (star_en,), None),
+              ("hier 3x4", dict(capacity=cap, pod_axis="pod"),
+               (intra, inter), None),
+              ("hier 3x4/link 16, pod 48",
+               dict(capacity=cap, pod_axis="pod", link_capacity=16,
+                    pod_capacity=48), (intra, inter), None),
+              ("hier 3x4/link 16, pod 48/timed",
+               dict(capacity=cap, pod_axis="pod", link_capacity=16,
+                    pod_capacity=48), (intra, inter), timed_wire()))
+    for name, star, enables, timing in legacy:
+        dims = ((("chip", n),) if len(enables) == 1
+                else (("pod", 3), ("chip", 4)))
+        jobs.append(dict(key=f"StarInterconnect {name}", kind="star",
+                         dims=dims, data=f"FULL_BACKPLANE@{SHARD_OCCS[1]:g}",
+                         loop=SHARD_LOOP_SHORT,
+                         star=star, enables=enables, timing=timing))
+    ranks = phase14_group(n, data, jobs, launches, gpu, barriers=True)
+    for rank, r in enumerate(ranks):
+        pod, chip = divmod(rank, 4)
+        want = [True, False, pod != 0, chip != 3]
+        if r["barrier"] != want:
+            raise AssertionError(f"barrier on rank {rank}: {r['barrier']}, "
+                                 f"expected {want}")
+    print(f"phase 14: barrier on {n} ranks (ready on the card): all ready -> "
+          f"released on every rank; rank 3 not ready -> held on the star, "
+          f"held only in rank 3's pod (chip axis) and chip column (pod axis) "
+          f"of the 3 x 4 hierarchy [{gpu}]", flush=True)
+
+    # (b) The 3-level twin of EXT_4CASE_96CHIP on 8 ranks, degraded.
+    _, _, ext_cap_in, ext_cap = next(c for c in scenarios.CASES
+                                     if c[0] == "EXT_4CASE_96CHIP")
+    twin = scenarios.plan_for(EXT_TWIN, ext_cap, scenarios.level_caps(
+        EXT_TWIN, ext_cap_in, OCC))
+    variants = {v: (fablib.compile_fabric(fablib.degrade_spec(twin.spec, dead))
+                    if dead else twin, None)
+                for v, dead in scenarios.DEGRADED_VARIANTS}
+    variants["overlay"] = (twin, {("uplink", 1): (1,), ("downlink", 0): (5,)})
+    key = "EXT_TWIN_2x2x2@0.5"
+    data = {key: shard_inputs(15, math.prod(EXT_TWIN), ext_cap_in, 0.5)}
+    phase14_group(math.prod(EXT_TWIN), data,
+                  fabric_jobs(key, twin, key, variants, loop=SHARD_LOOP_SHORT),
+                  launches, gpu)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -2821,6 +3226,7 @@ def main() -> None:
     timed_phase("11", lambda: phase11(gpu))
     timed_phase("12", lambda: phase12(launches, gpu))
     timed_phase("13", lambda: phase13(launches, gpu))
+    timed_phase("14", lambda: phase14(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

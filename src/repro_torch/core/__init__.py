@@ -16,7 +16,7 @@ from repro_torch.core.routing import (  # noqa: F401
 )
 from repro_torch.core.fabric import (  # noqa: F401
     LevelSpec, FabricSpec, LevelPlan, FabricPlan, compile_fabric,
-    fabric_route_step,
+    fabric_route_step, fabric_exchange, FabricInterconnect,
     EXCHANGE_MODES, with_exchange_mode, pick_exchange_mode,
     star_spec, hierarchical_spec, ext_4case_spec,
     FabricHealth, FaultEvent, full_health, degrade_spec, health_schedule,
@@ -24,7 +24,8 @@ from repro_torch.core.fabric import (  # noqa: F401
 )
 from repro_torch.core.aggregator import (  # noqa: F401
     RouterState, ExchangeDrops, identity_router, route_step,
-    route_step_baseline, route_step_hierarchical,
+    route_step_baseline, route_step_hierarchical, star_exchange,
+    hierarchical_exchange, StarInterconnect,
 )
 from repro_torch.core.sync import (  # noqa: F401
     SyncConfig, barrier, barrier_release_time, refractory_mask,

@@ -19,6 +19,14 @@ Port of the stacked part of ``src/repro/core/fabric.py``.
   reference's unfused composition, plain PyTorch with no kernel.
 * ``pick_exchange_mode`` — time both wire strategies on a plan and its
   traffic and keep the faster.
+* ``fabric_exchange`` — the sharded executor on ``torch.distributed``: one
+  leaf per rank of a nested ``DeviceMesh`` (``parallel.sharding.
+  fabric_mesh``), one all-gather of 16-bit wire words per level, or in
+  routed mode point-to-point sends along the hop-graph edges only; the
+  same merge tail (the ``merge_pack`` kernel) and the same observables as
+  ``fabric_route_step``, bit for bit.
+* ``FabricInterconnect`` — the mesh binding, with ``exchange_fn`` /
+  ``stream_fn``.
 
 Hop-graph semantics (paper §III/§V): leaves are the ``prod(fan_in)``
 Node-FPGA endpoints.  A tier-``i`` entity (tier 0 = leaf, tier 1 =
@@ -39,9 +47,6 @@ round on top of it without a recompile and without rerouting, and
 (``health_schedule``) or into the constant-health segments that
 ``run_stream``'s reroute mode recompiles (``fault_boundaries``,
 ``dead_edges_at``).
-
-The sharded executor (``torch.distributed``) is queued in ROADMAP.md
-(queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core import routing
@@ -66,6 +72,9 @@ from repro_torch.core.link import LinkConfig
 from repro_torch.kernels.spike_router.ops import (fused_exchange,
                                                   fused_merge_pack)
 from repro_torch.kernels.spike_router.ref import merge_pack_ref
+from repro_torch.parallel.collectives import transport_device
+from repro_torch.parallel.sharding import (edge_neighbor_permutes,
+                                           fabric_leaf_index)
 
 
 class ExchangeDrops(NamedTuple):
@@ -586,6 +595,19 @@ def _const(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _concrete_enables(enables) -> np.ndarray:
+    """Routed mode compiles a static edge schedule from the route enables,
+    so they must hold data: a meta tensor (PyTorch's placeholder for a
+    traced value) holds none."""
+    if isinstance(enables, torch.Tensor) and enables.is_meta:
+        raise ValueError(
+            "exchange_mode='routed' compiles a static edge schedule from the "
+            "plan's route enables, which hold no data here (a meta tensor): "
+            "build the plan from concrete enables or use "
+            "exchange_mode='gather'")
+    return _to_numpy(enables).astype(bool)
+
+
 # Keyed by (n, gsize, fan_in, level > 0, enables bytes), as in the reference.
 _ROUTED_MAP_CACHE: dict = {}
 
@@ -600,7 +622,7 @@ def _routed_leaf_maps(enables, level: int, n: int, gsize: int, f: int):
     False; ``deg`` is the largest in-degree.  These are the hop-graph
     edges: a disabled pair never enters the merge stream.
     """
-    en = _to_numpy(enables).astype(bool)
+    en = _concrete_enables(enables)
     key = (n, gsize, f, min(level, 1), en.tobytes())
     hit = _ROUTED_MAP_CACHE.get(key)
     if hit is None:
@@ -683,11 +705,45 @@ def _down_mask(lvl: LevelPlan, dyn_down, ent: np.ndarray, ent_t, device):
 
 
 def _detour_penalty(lvl: LevelPlan, timing: TimedWire, valid) -> torch.Tensor:
-    """Timed cost of the extension-lane detour: one extra crossing of this
-    level plus the host lane's wait of the event's rank in the stream."""
+    """Timed cost of one more crossing of ``lvl``: its extra plus the lane's
+    wait of the event's rank in the stream.  An extension-lane detour pays
+    it, and so does every stream that cascades up into ``lvl``."""
     extra = (lvl.extra_ns if lvl.extra_ns is not None
              else timing.second_layer_extra_ns)
     return extra + queue_wait_i32(_rank(valid), timing.uplink_queue)
+
+
+def _merge_round(parts_l, parts_v, parts_t, rev_tables, plan: FabricPlan,
+                 seg_lens: tuple[int, ...], lead, *, use_fused: bool,
+                 timing: TimedWire | None, uplink, unroutable, rerouted
+                 ) -> tuple[EventFrame, ExchangeDrops]:
+    """The tail both executors share: merge every destination's level
+    segments in ``merge_pack`` (its kernel when ``use_fused``, else its
+    plain version), add the receiver's fixed path to the timed lane and
+    restore the ``lead`` batch dims."""
+    merge = fused_merge_pack if use_fused else merge_pack_ref
+    outs = merge(
+        torch.cat(parts_l, dim=-1), torch.cat(parts_v, dim=-1), rev_tables,
+        capacity=plan.capacity, seg_lens=seg_lens, compact=plan.compact,
+        times=None if timing is None else torch.cat(parts_t, dim=-1),
+        queue=None if timing is None else timing.queue)
+    if timing is None:
+        out_l, out_v, dropped = outs
+        out_t = torch.zeros_like(out_l)
+    else:
+        # Receiver-side fixed path, after the merge's destination queue.
+        out_l, out_v, out_t, dropped = outs
+        out_t = torch.where(out_v, out_t + timing.recv_fixed_ns,
+                            torch.zeros_like(out_t))
+
+    def unflat(x):
+        return x.reshape((*lead, *x.shape[1:]))
+
+    return (EventFrame(labels=unflat(out_l), times=unflat(out_t),
+                       valid=unflat(out_v)),
+            ExchangeDrops(congestion=unflat(dropped), uplink=unflat(uplink),
+                          unroutable=unflat(unroutable),
+                          rerouted=unflat(rerouted)))
 
 
 # ---------------------------------------------------------------------------
@@ -870,10 +926,8 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
             s_vf = cur_v.reshape(b, n_grp, s_len)
             s_t = None
             if timing is not None:
-                extra = (nxt.extra_ns if nxt.extra_ns is not None
-                         else timing.second_layer_extra_ns)
-                t = (cur_t.reshape(b, n_grp, s_len) + extra
-                     + queue_wait_i32(_rank(s_vf), timing.uplink_queue))
+                t = (cur_t.reshape(b, n_grp, s_len)
+                     + _detour_penalty(nxt, timing, s_vf))
                 s_t = torch.where(s_vf, t, torch.zeros_like(t))
             if nxt.link_capacity is not None:
                 up, drop = make_frame(s_l, s_t, s_vf, nxt.link_capacity)
@@ -884,32 +938,10 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
                 cur_l, cur_v, cur_t, cur_len = s_l, s_vf, s_t, s_len
             gsize = gnext
 
-    labels = torch.cat(parts_l, dim=-1)
-    valid = torch.cat(parts_v, dim=-1)
-    seg_lens = merge_segments(plan, cap_in)
-    merge = fused_merge_pack if use_fused else merge_pack_ref
-    outs = merge(
-        labels, valid, state.rev_tables, capacity=plan.capacity,
-        seg_lens=seg_lens, compact=plan.compact,
-        times=None if timing is None else torch.cat(parts_t, dim=-1),
-        queue=None if timing is None else timing.queue)
-    if timing is None:
-        out_l, out_v, dropped = outs
-        out_t = torch.zeros_like(out_l)
-    else:
-        # Receiver-side fixed path, after the merge's destination queue.
-        out_l, out_v, out_t, dropped = outs
-        out_t = torch.where(out_v, out_t + timing.recv_fixed_ns,
-                            torch.zeros_like(out_t))
-
-    def unflat(x):
-        return x.reshape(*lead, *x.shape[1:])
-
-    return (EventFrame(labels=unflat(out_l), times=unflat(out_t),
-                       valid=unflat(out_v)),
-            ExchangeDrops(congestion=unflat(dropped), uplink=unflat(uplink),
-                          unroutable=unflat(unroutable),
-                          rerouted=unflat(rerouted)))
+    return _merge_round(parts_l, parts_v, parts_t, state.rev_tables, plan,
+                        merge_segments(plan, cap_in), lead,
+                        use_fused=use_fused, timing=timing, uplink=uplink,
+                        unroutable=unroutable, rerouted=rerouted)
 
 
 # ---------------------------------------------------------------------------
@@ -956,3 +988,321 @@ def pick_exchange_mode(state, frames: EventFrame, plan: FabricPlan, *,
             seconds[mode] = min(seconds[mode], one_pass(p))
     winner = min(seconds, key=seconds.get)
     return plans[winner], seconds
+
+
+# ---------------------------------------------------------------------------
+# Sharded executor: one leaf per rank of a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+
+def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
+    """One explicit copy of a stream plane to ``group``'s transport device;
+    int16 wire words travel as their bytes (a ``uint8`` view, 2 B an
+    event: neither gloo's all-gather nor NCCL takes int16)."""
+    x = x.to(transport_device(group, x.device)).contiguous()
+    return x.view(torch.uint8) if x.dtype == torch.int16 else x
+
+
+def _from_wire(plane: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.int16:
+        plane = plane.view(torch.int16)
+    return plane.to(like.device)
+
+
+def _gather_plane(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather one level's stream plane over ``group``: ``x`` [b, L] on
+    every rank → [b, f, L], row ``s`` from the rank in slot ``s``.  Counts
+    its calls and the bytes this rank receives."""
+    f = dist.get_world_size(group)
+    wire = _to_wire(x, group)
+    parts = [torch.empty_like(wire) for _ in range(f)]
+    dist.all_gather(parts, wire, group=group)
+    _gather_plane.calls += 1
+    _gather_plane.bytes += (f - 1) * wire.numel() * wire.element_size()
+    return _from_wire(torch.stack(parts, dim=-2), x)
+
+
+_gather_plane.calls = 0
+_gather_plane.bytes = 0
+
+
+def _routed_plane(x: torch.Tensor, group, perms) -> torch.Tensor:
+    """Reconstruct one level's [b, f, L] plane edge-wise.
+
+    The own slot never travels (every rank already holds its entity's
+    stream); the other rows arrive over ring rotations, one
+    ``batch_isend_irecv`` per rotation ``r`` of ``perms``
+    (``parallel.sharding.edge_neighbor_permutes``), in which this rank
+    posts its send to slot ``me + r`` and its receive from slot ``me - r``
+    where that pair is in the rotation.  A pruned pair posts nothing on
+    either side and its row stays zero, which decodes as invalid.  Counts
+    the sends, the receives and the bytes this rank receives.
+    """
+    f, me = dist.get_world_size(group), dist.get_rank(group)
+    wire = _to_wire(x, group)
+    plane = torch.zeros((f, *wire.shape), dtype=wire.dtype,
+                        device=wire.device)
+    plane[me] = wire
+    for r, perm in enumerate(perms, start=1):
+        dst, src = (me + r) % f, (me - r) % f
+        ops = []
+        if (me, dst) in perm:
+            ops.append(dist.P2POp(dist.isend, wire,
+                                  dist.get_global_rank(group, dst), group))
+            _routed_plane.sends += 1
+        if (src, me) in perm:
+            ops.append(dist.P2POp(dist.irecv, plane[src],
+                                  dist.get_global_rank(group, src), group))
+            _routed_plane.recvs += 1
+            _routed_plane.bytes += wire.numel() * wire.element_size()
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+    return _from_wire(plane.movedim(0, -2).contiguous(), x)
+
+
+_routed_plane.sends = 0
+_routed_plane.recvs = 0
+_routed_plane.bytes = 0
+
+
+def fabric_exchange(frame: EventFrame, mesh, fwd_table: torch.Tensor,
+                    rev_table: torch.Tensor, plan: FabricPlan, *,
+                    axis_names: Sequence[str] | None = None,
+                    use_fused: bool | None = None,
+                    timing: TimedWire | None = None,
+                    health: FabricHealth | None = None
+                    ) -> tuple[EventFrame, ExchangeDrops]:
+    """One N-level exchange round seen from this rank's leaf.
+
+    Every rank of ``mesh`` (a nested ``DeviceMesh``, one dimension per
+    level, top level outermost: ``parallel.sharding.fabric_mesh``) calls
+    this with its own leaf's egress ``frame`` ``[..., cap_in]`` and its own
+    ``fwd_table`` [2^16] / ``rev_table`` [2^15]; leading dims are
+    independent rounds, moved in one collective per level and merged in
+    one ``merge_pack`` launch.  ``axis_names`` lists the mesh dimensions
+    leaf level first (default: the mesh's dimensions reversed).
+
+    Each level does one all-gather over its dimension's process group of
+    int16 wire words (``events.pack_wire16``), with the gathered stream
+    optionally packed to the next level's ``link_capacity`` before
+    uplinking (packs cascade); the timed lane, when ``timing`` is set,
+    travels as a separate int32 plane.  A ``"routed"`` plan replaces each
+    gather with point-to-point sends along the hop-graph edges
+    (``_routed_plane``): at the top level route-disabled pairs are pruned
+    and post nothing.  Gating, segment layout, drops and timestamps mirror
+    ``fabric_route_step`` bit for bit; a degraded plan or a ``health``
+    overlay (``FabricHealth``, on the frame's device) masks dead slots on
+    the gathered planes and retimes detoured streams the same way.
+
+    Wire planes move to the group's transport device with one copy each
+    way (``parallel.collectives.transport_device``: the card under NCCL,
+    the host under gloo); the kernels and every other tensor stay on the
+    frame's device.  ``use_fused`` as in ``fabric_route_step``: ``None``
+    and ``True`` end the round in the ``merge_pack`` kernel, ``False`` in
+    its plain version.
+
+    Returns (this leaf's ingress frame ``[..., capacity]``, ExchangeDrops
+    of int32 ``[...]``: congestion at this destination, uplink overflow and
+    unroutable/rerouted events attributed to this leaf).
+    """
+    if use_fused is None:
+        use_fused = True
+    levels = plan.levels
+    axes = (tuple(axis_names) if axis_names is not None
+            else tuple(reversed(mesh.mesh_dim_names)))
+    if len(axes) != len(levels):
+        raise ValueError(f"{len(axes)} mesh axes for {len(levels)} fabric "
+                         "levels")
+    routed = plan.exchange_mode == "routed"
+    perms = [edge_neighbor_permutes(_concrete_enables(lvl.enables),
+                                    prune=i + 1 == len(levels))
+             for i, lvl in enumerate(levels)] if routed else None
+    dev = frame.labels.device
+    if health is not None:
+        _check_health(plan, health, dev)
+    degraded = plan.degraded or health is not None
+    *lead, cap_in = frame.labels.shape
+    b = math.prod(lead)
+
+    wire, fwd_en = routing.lookup_fwd(fwd_table,
+                                      frame.labels.reshape(b, cap_in))
+    ev = frame.valid.reshape(b, cap_in) & fwd_en
+    times = (None if timing is None else
+             _egress_times(frame.times.reshape(b, cap_in), ev, timing))
+    u0 = levels[0].link_capacity
+    zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
+    uplink = zeros
+    if u0 is not None:
+        packed, uplink = make_frame(wire, times, ev, u0)
+        wire, ev = packed.labels, packed.valid
+        if timing is not None:
+            times = packed.times
+    # This rank's global leaf, from its mesh coordinates.
+    leaf = fabric_leaf_index(mesh, plan.fan_ins, axes) if degraded else None
+
+    unroutable = rerouted = zeros
+    recv_ok = None                     # this leaf's downlink path health
+    cur_words, cur_times = pack_wire16(wire, ev), times
+    gsize = 1
+    parts_w, parts_en, parts_t = [], [], []
+    for i, lvl in enumerate(levels):
+        f = lvl.fan_in
+        group = mesh.get_group(axes[i])
+        me = dist.get_rank(group)
+        flow_ok = live_detour = None
+        if degraded:
+            # Every leaf of a tier-i entity carries the entity stream, so
+            # the entity's (pre-mask) events count against my own leaf, as
+            # the stacked executor attributes them.
+            ent_me = leaf // gsize
+            flow_ok, live_detour = _flow_masks(
+                lvl, None if health is None else health.uplink[i], dev)
+            if flow_ok is not None:
+                mine = unpack_wire16(cur_words)[1].sum(dim=-1,
+                                                       dtype=torch.int32)
+                unroutable = unroutable + torch.where(flow_ok[ent_me], 0,
+                                                      mine)
+                if live_detour is not None:
+                    rerouted = rerouted + torch.where(live_detour[ent_me],
+                                                      mine, 0)
+            ent = np.array([ent_me])
+            d_ok = _down_mask(lvl, None if health is None
+                              else health.downlink[i], ent, _const(ent, dev),
+                              dev)
+            if d_ok is not None:
+                d_ok = d_ok.reshape(())
+                recv_ok = d_ok if recv_ok is None else recv_ok & d_ok
+
+        if routed:
+            g_words = _routed_plane(cur_words, group, perms[i])
+            g_times = (None if timing is None
+                       else _routed_plane(cur_times, group, perms[i]))
+        else:
+            g_words = _gather_plane(cur_words, group)
+            g_times = (None if timing is None
+                       else _gather_plane(cur_times, group))
+        seg = g_words.shape[-1]
+        if flow_ok is not None:
+            # Gathered slot s holds the entity (leaf // gnext) * f + s.
+            slots = _const((leaf // (gsize * f)) * f + np.arange(f), dev)
+            flow_s = flow_ok[slots][:, None]
+            if timing is not None:
+                if live_detour is not None:
+                    g_v = unpack_wire16(g_words)[1]
+                    pen = _detour_penalty(lvl, timing, g_v)
+                    g_times = torch.where(live_detour[slots][:, None] & g_v,
+                                          g_times + pen, g_times)
+                g_times = torch.where(flow_s, g_times,
+                                      torch.zeros_like(g_times))
+            g_words = torch.where(flow_s, g_words, torch.zeros_like(g_words))
+        gate = lvl.enables[:, me].copy()             # src slot → this dest
+        if i > 0:
+            gate[me] = False
+        en = _const(np.repeat(gate, seg), dev).expand(b, f * seg)
+        s_words = g_words.reshape(b, f * seg)
+        if recv_ok is not None:
+            lost = (unpack_wire16(s_words)[1] & en).sum(dim=-1,
+                                                        dtype=torch.int32)
+            unroutable = unroutable + torch.where(recv_ok, 0, lost)
+            en = en & recv_ok
+        parts_w.append(s_words)
+        parts_en.append(en)
+        if timing is not None:
+            parts_t.append(g_times.reshape(b, f * seg))
+        gsize *= f
+
+        if i + 1 < len(levels):
+            # U_{i+1}: the whole gathered stream uplinks (ungated); timed
+            # events pay the crossing extra plus the wait of their rank,
+            # and the pack cascades.
+            nxt = levels[i + 1]
+            s_labels, s_valid = unpack_wire16(s_words)
+            s_t = None
+            if timing is not None:
+                t = parts_t[-1] + _detour_penalty(nxt, timing, s_valid)
+                s_t = torch.where(s_valid, t, torch.zeros_like(t))
+            if nxt.link_capacity is not None:
+                up, drop = make_frame(s_labels, s_t, s_valid,
+                                      nxt.link_capacity)
+                cur_words = pack_wire16(up.labels, up.valid)
+                cur_times = up.times if timing is not None else None
+                uplink = uplink + drop
+            else:
+                cur_words, cur_times = s_words, s_t
+
+    # The planes keep the gather layout in routed mode too (a pruned slot
+    # stays zero), so the segments are the gather mode's.
+    return _merge_round(parts_w, parts_en, parts_t, rev_table, plan,
+                        tuple(s for level in plan.merge_layout(cap_in)
+                              for s in level), lead,
+                        use_fused=use_fused, timing=timing, uplink=uplink,
+                        unroutable=unroutable, rerouted=rerouted)
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricInterconnect:
+    """Binds the sharded exchange to a nested mesh, one dimension per
+    fabric level (``parallel.sharding.fabric_mesh(plan)`` builds one).
+
+    ``axis_names`` lists the dimensions leaf level first; ``None`` takes
+    the mesh's dimensions reversed (outermost = top level).  Route enables
+    come from the plan, so the returned functions take ``(frames,
+    fwd_table, rev_table)``: this rank's frame and its own tables.  The
+    reference takes the global array sharded over its mesh instead; here
+    each rank passes and gets back its own shard.
+    """
+
+    mesh: object
+    plan: FabricPlan
+    axis_names: tuple[str, ...] | None = None
+    use_fused: bool | None = None
+    timing: TimedWire | None = None
+    health: FabricHealth | None = None  # dynamic overlay, every round
+
+    def _axes(self) -> tuple[str, ...]:
+        axes = (tuple(self.axis_names) if self.axis_names is not None
+                else tuple(reversed(self.mesh.mesh_dim_names)))
+        if len(axes) != self.plan.n_levels:
+            raise ValueError(f"{len(axes)} mesh axes for "
+                             f"{self.plan.n_levels} fabric levels")
+        sizes = dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
+        for name, lvl in zip(axes, self.plan.levels):
+            if sizes.get(name) != lvl.fan_in:
+                raise ValueError(
+                    f"mesh axis {name!r} has size {sizes.get(name)} but the "
+                    f"fabric level expects fan_in {lvl.fan_in}")
+        return axes
+
+    def _round(self, frame_dims: int, what: str):
+        axes = self._axes()
+
+        def fn(frames: EventFrame, fwd_table, rev_table):
+            if frames.labels.dim() != frame_dims:
+                raise ValueError(f"{what} takes this rank's "
+                                 f"{frame_dims}-d frames, got labels "
+                                 f"{tuple(frames.labels.shape)}")
+            return fabric_exchange(frames, self.mesh, fwd_table, rev_table,
+                                   self.plan, axis_names=axes,
+                                   use_fused=self.use_fused,
+                                   timing=self.timing, health=self.health)
+
+        return fn
+
+    def exchange_fn(self, *, donate: bool = False):
+        """One round: ``fn(frame, fwd_table, rev_table)`` over this rank's
+        ``[cap_in]`` frame → (``[capacity]`` frame, 0-d ExchangeDrops); one
+        collective (or one set of sends) per level and one ``merge_pack``
+        launch a call.  ``donate`` is kept for the reference's signature:
+        PyTorch has no buffer donation, and the call never writes into its
+        inputs."""
+        return self._round(1, "exchange_fn")
+
+    def stream_fn(self, *, donate: bool = False):
+        """T rounds: ``fn(frames, fwd_table, rev_table)`` over ``[T,
+        cap_in]`` → ``[T, capacity]`` frames and ``[T]`` drops, equal to T
+        ``exchange_fn`` calls bit for bit.  The rounds of an exchange-only
+        stream do not depend on each other, so all T move in one
+        collective per level and merge in one ``merge_pack`` launch a call.
+        ``donate`` as in ``exchange_fn``."""
+        return self._round(2, "stream_fn")

@@ -7,7 +7,10 @@ system-start signal, releasing all playback executions within one 8 ns
 system-clock cycle.  The logic has configurable timeout and refractory
 periods as fault-recovery mechanisms, and is fully symmetric.
 
-The timeout/refractory recovery semantics live at two levels:
+An all-reduce over a mesh axis *is* this barrier: it is decentralized,
+symmetric and releases all participants together (``barrier``, on
+``torch.distributed``).  The timeout/refractory recovery semantics live at
+two levels:
 
   * functionally: ``barrier_release_time`` / ``refractory_mask`` model the
     logic on tensors (used by tests and the latency model);
@@ -15,9 +18,6 @@ The timeout/refractory recovery semantics live at two levels:
     refractory cycle to stream windows (checkpoint/restart), and
     ``runtime.watchdog.WatchdogConfig.from_sync`` converts a barrier
     configuration into the watchdog's seconds at the 8 ns system clock.
-
-The in-graph ``barrier`` across devices is a collective of the sharded
-executor, which the port does not have yet: it raises.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.collectives import transport_device
 
 SYSTEM_CLOCK_NS = 8.0
 
@@ -40,13 +43,24 @@ class SyncConfig:
     refractory_cycles: int = 12_500        # 100 µs lockout after a release
 
 
-def barrier(ready, axis_name: str):
-    """The decentralized barrier across the devices of a mesh axis: an
-    all-reduce of the participants' readiness.  Needs the sharded executor
-    on ``torch.distributed``."""
-    raise NotImplementedError("the in-graph barrier is a collective of the "
-                              "sharded executor, not ported yet (ROADMAP.md "
-                              "queue 1, item 7)")
+def barrier(ready, axis_name: str, mesh) -> torch.Tensor:
+    """Decentralized barrier across the ranks of ``mesh``'s dimension
+    ``axis_name``.
+
+    Every rank contributes its readiness; the result is True on *all*
+    ranks iff all were ready: one all-reduce counts the ready ranks (the
+    Aggregator's role), a second the participants, and the comparison
+    broadcast plays the external start signal.  Returns a bool tensor on
+    ``ready``'s device.
+    """
+    ready = torch.as_tensor(ready)
+    group = mesh.get_group(axis_name)
+    wire = transport_device(group, ready.device)
+    n_ready = ready.to(device=wire, dtype=torch.int32, copy=True)
+    n_all = torch.ones_like(n_ready)
+    dist.all_reduce(n_ready, group=group)
+    dist.all_reduce(n_all, group=group)
+    return (n_ready == n_all).to(ready.device)
 
 
 def barrier_release_time(ready_times, cfg: SyncConfig

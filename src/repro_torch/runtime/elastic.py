@@ -50,8 +50,8 @@ only carries it):
 * any other tensor is raw key data (``rng_impl`` null), as in the
   reference.
 
-``resume_on_mesh`` (resharding a training checkpoint onto a device mesh)
-belongs to the sharded executor and raises.
+``resume_on_mesh`` (resharding an LM training checkpoint onto a device
+mesh) needs the LM shardings and raises.
 """
 
 from __future__ import annotations
@@ -74,11 +74,12 @@ GENERATOR_IMPL = "torch.Generator:"
 
 def resume_on_mesh(directory: str, state_like, mesh, params_key="params",
                    step: int | None = None):
-    """Load the latest checkpoint and shard it for a device mesh.  Needs
-    the sharded executor on ``torch.distributed``."""
-    raise NotImplementedError("resume_on_mesh reshards onto a device mesh "
-                              "(parallel/sharding.py), not ported yet "
-                              "(ROADMAP.md queue 1, item 7)")
+    """Load the latest checkpoint and shard it for a device mesh: the LM
+    parameter and optimizer shardings (``param_shardings``), which come
+    with the LM training harness."""
+    raise NotImplementedError("resume_on_mesh shards LM parameters and "
+                              "optimizer moments (param_shardings), not "
+                              "ported yet (ROADMAP.md queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------

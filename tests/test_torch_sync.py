@@ -72,8 +72,18 @@ def test_constants_and_config_match():
 
 
 def test_barrier_is_the_sharded_executors():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsync.barrier(torch.tensor(True), "chip")
+    """The barrier is a collective of the sharded executor: two
+    all-reduces over a mesh axis (here a one-rank group; 8 ranks in
+    ``test_torch_sharded_star.py``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import sharded_cases
+
+    with sharded_cases.single_rank_group():
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("chip",))
+        for ready in (True, False):
+            got = tsync.barrier(torch.tensor(ready), "chip", mesh)
+            assert got.dtype == torch.bool and bool(got) is ready
 
 
 def test_core_exports_the_reference_sync_names():
