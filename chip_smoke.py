@@ -129,6 +129,23 @@ Phases, each reported on its own lines:
    call, routed rounds make no all-gather, and the wire bytes a rank
    receives match the plan; µs a round a rank for both entry points.
 
+15. The dense surrogate and surrogate-gradient training at full chip
+   width: (a) for A, ``examples/multichip_snn.py``'s network (3 chips,
+   capacity 600, T = 32, batch 16), and B, one backplane (12 chips, T =
+   64), the dense run (``routing_matrices``, ``run_stream(mode="dense")``:
+   a cuBLAS product a step, no spike-router kernel) equals the event run
+   (the exchange kernel once a step, nothing dropped) bit for bit, and the
+   dense run on the card equals the CPU's (``repro_torch.parity``,
+   near-threshold flips reported with their margins); steps/s of both in
+   6 turns, device operations a step and the busy share; (b) 60
+   ``train_step``s of A on card batches from ``make_batch``: the first
+   step's loss, gradient and new weights equal the CPU's on the same
+   batch, ms a train step, peak device memory, the busy share and the
+   losses (the mean of the first and the last 5); (c) 10 train steps of
+   B: ms a step and peak device memory; then 30 steps of R, the
+   reference's training test's network (2 chips, T = 24): the mean loss
+   of the last 5 steps must lie below that of the first 5.
+
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it fails before printing a result.
@@ -186,6 +203,7 @@ from repro_torch.snn import stream  # noqa: E402
 from repro_torch.core import latency  # noqa: E402
 from repro_torch.core.latency import timed_wire  # noqa: E402
 from repro_torch.snn import plasticity as plas  # noqa: E402
+from repro_torch.snn import training  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.launch import serve_emulation  # noqa: E402
 from repro_torch.runtime import elastic, engine, watchdog  # noqa: E402
@@ -1283,16 +1301,16 @@ def host_syncs(fn) -> int:
 
 
 def in_turns(runs: dict, launches: dict, want: dict,
-             rounds: int = 1) -> tuple[dict, dict]:
+             rounds: int = 1, steps: int = STEPS) -> tuple[dict, dict]:
     """Runs ``runs`` (name -> fn) as A B B A, ``rounds`` times over, each
-    run checked to launch ``want[name]`` by body.  Returns (last output,
-    steps/s list in run order) by name."""
+    run of ``steps`` steps checked to launch ``want[name]`` by body.
+    Returns (last output, steps/s list in run order) by name."""
     outs, rates = {}, {k: [] for k in runs}
     a, b = runs
     for name in (a, b, b, a) * rounds:
         outs[name], wall, paths = counted(runs[name])
         expect_bodies(name, paths, want[name], launches)
-        rates[name].append(STEPS / wall)
+        rates[name].append(steps / wall)
     return outs, rates
 
 
@@ -3188,6 +3206,274 @@ def phase14(launches: dict, gpu: str) -> None:
                   launches, gpu)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dense surrogate path and surrogate-gradient training
+# ---------------------------------------------------------------------------
+
+# Networks: name -> (chips, T, train steps), all at capacity 600 >= 512
+# events a destination, so a feed-forward event run drops nothing and can
+# equal the dense run.  A is examples/multichip_snn.py's training network
+# and B one backplane, both run dense against event and trained.  R is
+# the network of tests/test_snn.py::test_multichip_training_reduces_loss,
+# the one the reference holds to its loss criterion; A and B report their
+# losses (A's last chip fires about half the time and max|g| is about
+# 3e-5, so at lr 0.2 its loss stays near ln 4 over 60 steps).
+TRAIN_RUNS = {"A": (3, 32, 60), "B": (12, 64, 10), "R": (2, 24, 30)}
+TRAIN_BATCH, TRAIN_LR = 16, 0.2
+# The first train step, card against CPU: the gradient and momentum within
+# 1e-5 x max|g| (cuBLAS and the CPU sum the backward products in other
+# orders); the weights, w - lr*m rounded to float32, within lr times that
+# plus one float32 ulp of the weight.
+GRAD_TOL = 1e-5
+
+
+def train_config(n_chips: int, n_steps: int) -> training.TrainConfig:
+    return training.TrainConfig(
+        network=netlib.NetworkConfig(n_chips=n_chips, capacity=600),
+        n_steps=n_steps, n_classes=4, lr=TRAIN_LR)
+
+
+def zero_momentum(params):
+    return params._replace(chips=params.chips._replace(
+        weights=torch.zeros_like(params.chips.weights)))
+
+
+def other_launches() -> dict:
+    """The kernels no run_stream path launches: their total counts."""
+    return {"spike_router": ops.route_and_pack.launches,
+            "exchange_stream": ops.fused_exchange_stream.launches,
+            "lif_step": lif_ops.lif_step.launches}
+
+
+def dense_run(params, cfg, drives, mats, device, state=None):
+    return stream.run_stream(
+        params, netlib.init_state(cfg, drives.shape[2], device=device)
+        if state is None else state, drives, cfg, mode="dense",
+        route_mats=mats, device=device)
+
+
+def dense_card_vs_cpu(params, cfg, drives, mats, card_out) -> dict:
+    """The dense run on the card against the same run on the CPU, by the
+    flip rule (``parity.compare_streams``)."""
+    cpu = torch.device("cpu")
+    p_c, d_c, m_c = netlib.to_device(params, cpu), drives.cpu(), mats.cpu()
+    state = netlib.init_state(cfg, drives.shape[2], device=cpu)
+    ref = dense_run(p_c, cfg, d_c, m_c, cpu, state)
+
+    def margin_at(t):
+        before = dense_run(p_c, cfg, d_c[:t], m_c, cpu, state).state
+        return parity.spike_margin(p_c, before, d_c[t], cfg)
+
+    return parity.compare_streams(ref, card_out, margin_at)
+
+
+def phase15_dense(launches: dict, gpu: str) -> None:
+    """(a): dense against event, and the card against the CPU, on dyadic
+    weights (the card's float state is then the CPU's)."""
+    for name in ("A", "B"):
+        n, steps, _ = TRAIN_RUNS[name]
+        cfg = train_config(n, steps)
+        net = cfg.network
+        params = dyadic(netlib.init_feedforward(net, seed=15, device=DEV))
+        t0 = time.perf_counter()
+        mats = netlib.routing_matrices(params, net)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        drives, _ = training.make_batch(
+            cfg, TRAIN_BATCH, generator=torch.Generator(DEV).manual_seed(15),
+            device=DEV)
+        state = netlib.init_state(net, TRAIN_BATCH, device=DEV)
+        body = ops.exchange_body_for(n, net.capacity, n)
+
+        def dense(d=drives, p=params, c=net, m=mats, s=state):
+            return dense_run(p, c, d, m, DEV, s)
+
+        def event(d=drives, p=params, c=net, s=state):
+            return stream.run_stream(p, s, d, c, device=DEV)
+
+        dense(drives[:4]), event(drives[:4])                 # warm-up
+        before = other_launches()
+        outs, rates = in_turns(
+            {"event": event, "dense": dense}, launches,
+            {"event": {f"exchange {body}": steps}, "dense": {}}, rounds=3,
+            steps=steps)
+        if other_launches() != before:
+            raise AssertionError(f"{name}: a spike-router, stream or LIF "
+                                 f"kernel launched: {other_launches()}")
+        d, e = outs["dense"], outs["event"]
+        if int(e.dropped.sum()) or int(e.uplink_dropped.sum()):
+            raise AssertionError(f"{name}: the event run dropped events")
+        parity.assert_equal(f"{name} dense against event spikes", e.spikes,
+                            d.spikes)
+        parity.assert_equal(f"{name} dense against event delay line",
+                            e.state.inflight, d.state.inflight)
+        for f in ("dropped", "uplink_dropped", "unroutable", "rerouted"):
+            x = getattr(d, f)
+            if x.dtype != torch.int32 or x.shape != e.dropped.shape or \
+                    bool(x.any()):
+                raise AssertionError(f"{name} dense {f}: {x.dtype} "
+                                     f"{tuple(x.shape)}, not zeros")
+        per_chip = d.spikes.sum(dim=(0, 2, 3)).long().tolist()
+        if not per_chip[-1]:
+            raise AssertionError(f"{name}: no spike reached the last chip")
+        report = dense_card_vs_cpu(params, net, drives, mats, d)
+        print(f"phase 15: {name}: {n} chips x {net.chip.n_neurons} neurons "
+              f"x {net.chip.n_rows} rows, batch {TRAIN_BATCH}, {steps} "
+              f"steps, route_mats {mats.numel() * 4 / 1e6:.1f} MB built in "
+              f"{build_ms:.1f} ms; dense == event bit for bit (spikes, "
+              f"delay line; event dropped 0; dense statistics all zero "
+              f"int32); spikes by chip {per_chip}; launches by body: event "
+              f"{{'exchange {body}': {steps}}}, dense none (no spike-router, "
+              f"stream or LIF kernel either); card == CPU ("
+              f"{len(report['flips'])} near-threshold flips "
+              f"{report['flips'][:5]}, final state max err "
+              f"{report['state_max_err']}); steps/s in turns (event, dense, "
+              f"dense, event) x 3: event "
+              f"{', '.join(f'{r:.1f}' for r in rates['event'])}; dense "
+              f"{', '.join(f'{r:.1f}' for r in rates['dense'])} [{gpu}]",
+              flush=True)
+        for what, fn in (("dense", dense), ("event", event)):
+            print(f"phase 15: {name} {what}: " + device_breakdown(
+                lambda f=fn: f(drives[:PROFILE_STEPS]),
+                ours=("gemm", "exchange")) + f" [{gpu}]", flush=True)
+
+
+def first_step_vs_cpu(params, mats, drives, labels, cfg) -> dict:
+    """The first train step on the card against the CPU on the same batch:
+    the forward rasters' near-threshold flips (``dense_card_vs_cpu``
+    without its state tolerance), and the loss's relative error, the
+    gradient's (the momentum after one step) and the new weights' errors
+    over max|g|."""
+    cpu = torch.device("cpu")
+    p_c = netlib.to_device(params, cpu)
+    fwd = [training.forward_rates(p, mats, drives, cfg, TRAIN_BATCH,
+                                  device=dev)[1].cpu()
+           for dev, p in ((cpu, p_c), (DEV, params))]
+    differs = [t for t in range(fwd[0].shape[0])
+               if not torch.equal(fwd[0][t], fwd[1][t])]
+    flips = []
+    if differs:
+        t = differs[0]
+        before = dense_run(p_c, cfg.network, drives[:t].cpu(), mats.cpu(),
+                           cpu).state
+        margin = parity.spike_margin(p_c, before, drives[t].cpu(),
+                                     cfg.network)
+        flips = [(t, *(int(i) for i in k), float(margin[tuple(k)]))
+                 for k in torch.nonzero(fwd[0][t] != fwd[1][t])]
+    (p_0, m_0, loss_0, _), (p_1, m_1, loss_1, _) = (
+        training.train_step(p, zero_momentum(p), mats, drives, labels, cfg,
+                            device=dev)
+        for dev, p in ((cpu, p_c), (DEV, params)))
+    g = m_0.chips.weights
+    scale = float(g.abs().max())
+    w_0 = p_0.chips.weights
+    w_err = (p_1.chips.weights.cpu() - w_0).abs()
+    w_bound = (cfg.lr * GRAD_TOL * scale
+               + torch.from_numpy(np.spacing(w_0.abs().numpy())))
+    return {"flips": flips, "max_g": scale,
+            "loss": abs(float(loss_1) - float(loss_0)) / abs(float(loss_0)),
+            "g": float((m_1.chips.weights.cpu() - g).abs().max()) / scale,
+            "w": float(w_err.max()),
+            "w_within": bool((w_err <= w_bound).all())}
+
+
+def dyadic(params):
+    """``params`` at w_scale 2^-8 (the init's is 4 / (63 x 16)): every
+    synapse-product term is then a multiple of 2^-8 and the sums are exact
+    in any order, so the card's forward is the CPU's bit for bit (phases 4
+    and 12 do the same)."""
+    return params._replace(chips=params.chips._replace(
+        w_scale=torch.full_like(params.chips.w_scale, 2.0 ** -8)))
+
+
+def phase15_train(name: str, gpu: str) -> None:
+    """(b) and (c): the train steps of ``TRAIN_RUNS[name]`` on card
+    batches."""
+    n, steps, n_train = TRAIN_RUNS[name]
+    cfg = train_config(n, steps)
+    init = netlib.init_feedforward(cfg.network, seed=0, device=DEV)
+    # A trains the dyadic twin, whose first step the card must match.
+    params = dyadic(init) if name == "A" else init
+    mats = netlib.routing_matrices(params, cfg.network)
+    mom = zero_momentum(params)
+    # R takes the batches of tests/test_torch_training.py's run of the
+    # same network (a CPU generator seeded 100 + i), A and B a card's.
+    gens = ([torch.Generator().manual_seed(100 + i) for i in range(n_train)]
+            if name == "R" else
+            [torch.Generator(DEV).manual_seed(25)] * n_train)
+    batches = [training.make_batch(cfg, TRAIN_BATCH, generator=g, device=DEV)
+               for g in gens]
+    if name == "A":
+        # The first step, card against CPU: held on the dyadic network
+        # trained here; measured, not held, at the init's own w_scale,
+        # where the two devices' float sums differ.
+        check = first_step_vs_cpu(params, mats, *batches[0], cfg)
+        if (check["flips"] or check["loss"] > 1e-6
+                or check["g"] > GRAD_TOL or not check["w_within"]):
+            raise AssertionError(f"A: first train step, card against CPU: "
+                                 f"{check}")
+        loose = first_step_vs_cpu(init, mats, *batches[0], cfg)
+    training.train_step(params, mom, mats, *batches[0], cfg,
+                        device=DEV)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_snn_counts()
+    before = other_launches()
+    losses, ms = [], []
+    for drives, labels in batches:
+        t0 = time.perf_counter()
+        params, mom, loss, aux = training.train_step(params, mom, mats,
+                                                     drives, labels, cfg,
+                                                     device=DEV)
+        losses.append(float(loss))                           # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if any(snn_paths().values()) or other_launches() != before:
+        raise AssertionError(f"{name}: training launched an SNN kernel")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: loss not finite: {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    chip = cfg.network.chip
+    max_m = float(mom.chips.weights.abs().max())
+    line = (f"phase 15: {name} training, {n} chips x {chip.n_neurons} x "
+            f"{chip.n_rows}, T {steps}, "
+            f"batch {TRAIN_BATCH}, lr {TRAIN_LR}: {len(losses)} train steps "
+            f"at {float(np.median(ms)):.1f} ms a step (median; min "
+            f"{min(ms):.1f}, max {max(ms):.1f}), peak device memory "
+            f"{peak / 2 ** 30:.2f} GiB; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (mean of the first 5 {first:.4f}, last 5 "
+            f"{last:.4f}), acc {float(aux['acc']):.3f}, rate "
+            f"{float(aux['rate']):.4f}, max |momentum| {max_m:.3g}; no SNN "
+            f"kernel launched")
+    if name == "R":
+        if not last < first:
+            raise AssertionError(f"R: training did not reduce the loss: "
+                                 f"{losses}")
+        line += "; the loss fell (the reference test's criterion)"
+    if name == "A":
+        line += (f"; first step, card against CPU: rasters equal, loss "
+                 f"rel err {check['loss']:.3g}, gradient and momentum max "
+                 f"err {check['g']:.3g} x max|g| ({check['max_g']:.4g}), "
+                 f"new weights max err {check['w']:.3g} (within lr x "
+                 f"{GRAD_TOL} x max|g| + 1 ulp); at the init's own w_scale "
+                 f"(not held): {len(loose['flips'])} flips "
+                 f"{loose['flips'][:3]}, loss rel err {loose['loss']:.3g}, "
+                 f"gradient max err {loose['g']:.3g} x max|g|")
+    print(line + f" [{gpu}]", flush=True)
+    if name == "A":
+        print(f"phase 15: A train step: " + device_breakdown(
+            lambda: training.train_step(params, mom, mats, *batches[-1], cfg,
+                                        device=DEV),
+            per=1, unit="train step", ours=("gemm",)) + f" [{gpu}]",
+            flush=True)
+
+
+def phase15(launches: dict, gpu: str) -> None:
+    phase15_dense(launches, gpu)
+    for name in TRAIN_RUNS:
+        phase15_train(name, gpu)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -3227,6 +3513,7 @@ def main() -> None:
     timed_phase("12", lambda: phase12(launches, gpu))
     timed_phase("13", lambda: phase13(launches, gpu))
     timed_phase("14", lambda: phase14(launches, gpu))
+    timed_phase("15", lambda: phase15(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,5 +1,5 @@
-"""The chip substrate: neurons, chips, multi-chip networks, plasticity
-(port of ``repro.snn``; the names the port has, in the reference's
+"""The chip substrate: neurons, chips, multi-chip networks, encoders,
+plasticity and training (port of ``repro.snn``, its names in its
 grouping)."""
 
 from repro_torch.snn.neuron import (  # noqa: F401
@@ -14,10 +14,14 @@ from repro_torch.snn.chip import (  # noqa: F401
 from repro_torch.snn.network import (  # noqa: F401
     NetworkConfig, NetworkParams, NetworkState, init_feedforward,
     init_state as init_network_state, init_stream_plasticity,
-    step_event, run_event, run_event_steps,
+    routing_matrices, step_dense, step_event, run_dense, run_event,
+    run_event_steps,
 )
 from repro_torch.snn.stream import (  # noqa: F401
     StreamOut, run_stream, stream_latency_stats,
+)
+from repro_torch.snn.encoding import (  # noqa: F401
+    poisson_encode, latency_encode, regular_encode,
 )
 from repro_torch.snn.plasticity import (  # noqa: F401
     STDPConfig, STDPState, StreamPlasticityState, init_stdp,

@@ -71,8 +71,9 @@ def init_state(cfg: ChipConfig, n_chips: int, batch: int, *,
 
 def quantize_ste(w: torch.Tensor) -> torch.Tensor:
     """6-bit straight-through quantization: the forward value is exactly
-    ``round(w)`` (half to even), the gradient passes straight through."""
-    w = torch.clamp(w, 0.0, WEIGHT_MAX)
+    ``round(w)`` (half to even), the gradient passes straight through
+    (halved on the clip bounds 0 and 63, as the reference's)."""
+    w = nrn.clip(w, 0.0, WEIGHT_MAX)
     return w + (torch.round(w) - w).detach()
 
 

@@ -1,14 +1,21 @@
 """Multi-chip SNN: chips joined by the interconnect.
 
-Port of the event-mode parts of ``src/repro/snn/network.py``: configuration,
-parameters and state of a network of stacked chips, and the event-mode
-steps: ``step_event`` (one shift-register step through
-``aggregator.route_step``), ``run_event`` (the streamed run) and
-``run_event_steps`` (the per-step loop, the stream's oracle).  Inter-chip
-spikes arrive after ``delay_steps`` whole steps, derived from the
-chip-to-chip latency and the step ``dt``.  The dense (differentiable)
-routing path is queued in ROADMAP.md.  ``init_stream_plasticity`` and
-``init_slot_plasticity`` start ``run_stream``'s online plasticity.
+Port of ``src/repro/snn/network.py``: configuration, parameters and state
+of a network of stacked chips, and its two execution modes, which share
+one routing configuration:
+
+* event mode, the faithful datapath: ``step_event`` (one shift-register
+  step through ``aggregator.route_step``), ``run_event`` (the streamed run)
+  and ``run_event_steps`` (the per-step loop, the stream's oracle);
+* dense mode, the differentiable surrogate: ``routing_matrices`` compiles
+  the same LUTs and route enables into per-(source, destination) 0/1
+  matrices, so inter-chip traffic is a product and surrogate gradients
+  flow end to end (``step_dense``, ``run_dense``).  Without drops the two
+  modes give the same spike trains.
+
+Inter-chip spikes arrive after ``delay_steps`` whole steps, derived from
+the chip-to-chip latency and the step ``dt``.  ``init_stream_plasticity``
+and ``init_slot_plasticity`` start ``run_stream``'s online plasticity.
 """
 
 from __future__ import annotations
@@ -115,10 +122,88 @@ def init_slot_plasticity(params: NetworkParams, batch: int):
 
 
 def to_device(tree, device):
-    """Copy a NamedTuple tree of tensors to ``device``."""
+    """Copy a NamedTuple tree of tensors to ``device`` (differentiable:
+    nothing is detached)."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return type(tree)(*(to_device(x, device) for x in tree))
+
+
+# ---------------------------------------------------------------------------
+# Dense (differentiable) routing derived from the LUT configuration
+# ---------------------------------------------------------------------------
+
+
+def routing_matrices(params: NetworkParams, cfg: NetworkConfig
+                     ) -> torch.Tensor:
+    """Compile the LUTs and route enables into dense connectivity:
+    f32[n_src, n_dst, n_neurons, n_rows], where ``[s, d]`` maps source
+    chip ``s``'s output spikes onto destination chip ``d``'s synapse-row
+    drive (0/1, one row at most per neuron).  Neuron ``k`` of chip ``s``
+    reaches row ``row_of_label[d, chip_label & 0xFFFF]`` where both LUT
+    enables, the row (>= 0) and ``route_enables[s, d]`` allow it; built
+    for all pairs at once on the parameters' device."""
+    n, rows, neurons = cfg.n_chips, cfg.chip.n_rows, cfg.chip.n_neurons
+    router = params.router
+    device = router.fwd_tables.device
+    chips = torch.arange(n, device=device)
+    labels = ((chips[:, None].to(torch.int32) << NEURON_BITS)
+              + torch.arange(neurons, dtype=torch.int32, device=device))
+    wire, en_f = rt.lookup_fwd(router.fwd_tables, labels)       # [s, k]
+    # Every destination's reverse LUT over every source's wire labels.
+    chipl, en_r = rt.lookup_rev(router.rev_tables,
+                                wire.reshape(1, -1).expand(n, -1))
+    dst_rows = params.row_of_label[chips[:, None],
+                                   (chipl & 0xFFFF).long()]     # [d, s·k]
+    ok = (en_r & (dst_rows >= 0)).reshape(n, n, neurons)
+    ok = (ok.transpose(0, 1) & en_f[:, None, :]
+          & router.route_enables[:, :, None])                   # [s, d, k]
+    s_i, d_i, k_i = ok.nonzero(as_tuple=True)
+    out = torch.zeros((n, n, neurons, rows), dtype=torch.float32,
+                      device=device)
+    out[s_i, d_i, k_i,
+        dst_rows.reshape(n, n, neurons)[d_i, s_i, k_i].long()] = 1.0
+    return out
+
+
+def step_dense(params: NetworkParams, state: NetworkState,
+               ext_drive: torch.Tensor, route_mats: torch.Tensor,
+               cfg: NetworkConfig, *, device=None
+               ) -> tuple[NetworkState, torch.Tensor]:
+    """One network step with differentiable routing: the chip step on
+    ``ext_drive + inflight[0]``, then ``routed[d] = Σ_s spikes[s] @
+    route_mats[s, d]`` appended to the delay line as ``inflight[0]``
+    leaves.
+
+    ext_drive: f32[n_chips, batch, n_rows]; route_mats: the output of
+    ``routing_matrices``.  Returns (new state, spikes f32[n_chips, batch,
+    n_neurons]).  Runs on ``device`` (default CUDA)."""
+    # Imported here: the stream module imports this one.
+    from repro_torch.snn.stream import dense_layout, route_dense
+
+    device = resolve_device(device)
+    params = to_device(params, device)
+    state = to_device(state, device)
+    drive = ext_drive.to(device) + state.inflight[0]
+    chips, spikes = chiplib.chip_step(params.chips, state.chips, drive,
+                                      cfg.chip)
+    routed = route_dense(spikes, dense_layout(route_mats.to(device)))
+    inflight = torch.cat([state.inflight[1:], routed[None]], dim=0)
+    return NetworkState(chips=chips, inflight=inflight), spikes
+
+
+def run_dense(params: NetworkParams, state: NetworkState,
+              ext_drives: torch.Tensor, route_mats: torch.Tensor,
+              cfg: NetworkConfig, *, device=None
+              ) -> tuple[NetworkState, torch.Tensor]:
+    """Streamed dense run (``stream.run_stream(mode="dense")``).
+    ext_drives: f32[T, n_chips, batch, n_rows].  Returns (final state,
+    spikes)."""
+    from repro_torch.snn import stream  # imported here, as above
+
+    out = stream.run_stream(params, state, ext_drives, cfg, mode="dense",
+                            route_mats=route_mats, device=device)
+    return out.state, out.spikes
 
 
 # ---------------------------------------------------------------------------

@@ -95,6 +95,13 @@ class SpikeFn(torch.autograd.Function):
 spike_fn = SpikeFn.apply
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``torch.clamp``'s values with ``jnp.clip``'s gradient: a value on a
+    bound gets half the gradient (``torch.clamp`` passes all of it), as
+    ``minimum(maximum(x, lo), hi)`` splits a tie in both frameworks."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def membrane(state: NeuronState, input_current: torch.Tensor,
              params: NeuronParams = LIF
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,7 +115,7 @@ def membrane(state: NeuronState, input_current: torch.Tensor,
     if p.delta_t > 0.0:
         # Exponential spike-initiation current, clipped (the analog circuit
         # saturates similarly).
-        exp_arg = torch.clamp((state.v - p.v_exp) / p.delta_t, -20.0, 20.0)
+        exp_arg = clip((state.v - p.v_exp) / p.delta_t, -20.0, 20.0)
         dv_exp = (1.0 - p.alpha_mem) * p.delta_t * torch.exp(exp_arg)
     else:
         dv_exp = 0.0

@@ -1,11 +1,16 @@
 """Streaming multi-chip emulation — the closed loop, one step at a time.
 
-Port of the event mode of ``src/repro/snn/stream.py::run_stream``.  Every step:
+Port of ``src/repro/snn/stream.py::run_stream``.  Every step of event mode:
 
     chip step (synapse product + neuron update, all chips at once)
       → egress tap (label grid + capacity frame)
       → one exchange round through the compiled hop graph
       → ingress decode into synapse-row drives, written to the delay line
+
+Dense mode, the differentiable surrogate, replaces the three exchange
+stages by one product of the spikes with ``network.routing_matrices``
+(compiled from the same LUTs), so gradients flow from the spikes back to
+the chip weights.
 
 The reference scans this body with ``lax.scan``; the port runs a Python
 loop over steps, each step covering all batch rows.  The delay line is a
@@ -175,9 +180,30 @@ def health_at(sched: fablib.FabricHealth, t: int) -> fablib.FabricHealth:
                                downlink=pick(sched.downlink))
 
 
+def dense_layout(route_mats: torch.Tensor) -> torch.Tensor:
+    """``route_mats`` f32[n_src, n_dst, n_neurons, n_rows] laid out once
+    for ``route_dense``: f32[n_src · n_neurons, n_dst, n_rows] (a copy)."""
+    s, d, k, r = route_mats.shape
+    return route_mats.permute(0, 2, 1, 3).reshape(s * k, d, r)
+
+
+def route_dense(spikes: torch.Tensor, layout: torch.Tensor) -> torch.Tensor:
+    """One step of dense routing, ``einsum("sbn,sdnr->dbr", spikes,
+    route_mats)``, as one ``[batch, s·n] × [s·n, d·r]`` product over
+    ``dense_layout(route_mats)``.  Spikes and matrices are 0/1, so the sums
+    are integer counts, the same bits in any order.  Returns f32[n_dst,
+    batch, n_rows]."""
+    s, b, k = spikes.shape
+    _, d, r = layout.shape
+    routed = spikes.transpose(0, 1).reshape(b, s * k) @ layout.reshape(
+        s * k, d * r)
+    return routed.reshape(b, d, r).transpose(0, 1)
+
+
 def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                ext_drives: torch.Tensor, cfg: netlib.NetworkConfig, *,
-               mode: str = "event", topology: str = "star", n_pods: int = 1,
+               mode: str = "event", topology: str = "star",
+               route_mats: torch.Tensor | None = None, n_pods: int = 1,
                intra_enables=None, inter_enables=None,
                use_fused: bool | None = None,
                link_capacity: int | None = None,
@@ -193,8 +219,14 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
 
     Args:
       ext_drives: f32[T, n_chips, batch, n_rows] external input per step.
-      mode: ``"event"``, the faithful datapath (the dense surrogate is not
-        ported yet).
+      mode: ``"event"``, the faithful datapath, or ``"dense"``, the
+        differentiable surrogate: each step routes its spikes as one
+        product with ``route_mats`` (laid out once a run,
+        ``dense_layout``), compiles no plan and launches no exchange
+        kernel; its statistics are zeros of the event mode's shapes.
+        Gradients flow from ``StreamOut.spikes`` to the parameters.
+      route_mats: dense mode's f32[n_src, n_dst, n_neurons, n_rows]
+        (``network.routing_matrices``); required there.
       topology: without ``fabric``, ``"star"`` compiles a 1-level plan
         whose enables are ``params.router.route_enables``;
         ``"hierarchical"`` compiles the §V two-layer plan
@@ -262,14 +294,15 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
       ``StreamOut`` with the chips-first per-step outputs and the final
       state (delay line in shift order).
 
-    The argument checks raise the reference's ``ValueError``s in its order;
-    ``mode="dense"`` then raises ``NotImplementedError`` (ROADMAP.md queue
-    1, item 8).
+    The argument checks raise the reference's ``ValueError``s in its
+    order.
     """
     if mode not in ("event", "dense"):
         raise ValueError(f"unknown mode: {mode!r}")
     if topology not in ("star", "hierarchical"):
         raise ValueError(f"unknown topology: {topology!r}")
+    if mode == "dense" and route_mats is None:
+        raise ValueError("dense mode requires route_mats")
     if mode == "dense" and topology == "hierarchical":
         raise ValueError("hierarchical topology is event-mode only; dense "
                          "routing encodes the topology in route_mats")
@@ -324,11 +357,12 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
             raise ValueError(f"fabric plan ingress capacity "
                              f"{fabric.capacity} != cfg.capacity "
                              f"{cfg.capacity}")
-    if mode == "dense":
-        raise NotImplementedError("dense mode is not ported yet "
-                                  "(ROADMAP.md queue 1, item 8)")
     device = resolve_device(device)
-    if fabric is not None:
+    plan = layout = None
+    if mode == "dense":
+        layout = dense_layout(route_mats.to(device=device,
+                                            dtype=torch.float32))
+    elif fabric is not None:
         plan = fabric
     elif topology == "star":
         plan = fablib.compile_fabric(fablib.star_spec(
@@ -340,6 +374,8 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
             inter_enables=inter_enables, link_capacity=link_capacity,
             pod_capacity=pod_capacity))
 
+    # Not detached: in dense mode gradients flow back to the caller's
+    # parameters and state.
     params = netlib.to_device(params, device)
     chips = netlib.to_device(state.chips, device)
     # The ring buffer is written in place on this copy, never on the caller's.
@@ -393,7 +429,9 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
                                            mask=mask_t)
         elif plast is not None:
             plast = plaslib.stdp_stream_step(plast, drive, spikes, plasticity)
-        if not overlap:
+        if layout is not None:
+            inflight[slot] = route_dense(spikes, layout)
+        elif not overlap:
             # Egress: the consumed slot is the one due `delay` steps out.
             routed, *st = route(spikes, t)
             inflight[slot] = routed
@@ -421,14 +459,17 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         dropped, uplink, lat, lat_valid, unroutable, rerouted = (
             torch.stack(x) for x in zip(*stats))
     else:
-        # Zero steps: the reference's scan returns zero-length outputs of
-        # the per-step shapes and the state it was given.
+        # Dense mode has no wire: every statistic is zero.  Event mode
+        # gets here only at zero steps, where the reference's scan returns
+        # zero-length outputs of the per-step shapes and the state it was
+        # given.
         width = plan.capacity if timing is not None else 0
         dropped, uplink, unroutable, rerouted = (
-            torch.zeros((0, *rows), dtype=torch.int32, device=device)
+            torch.zeros((n_steps, *rows), dtype=torch.int32, device=device)
             for _ in range(4))
-        lat = torch.zeros((0, *rows, width), dtype=torch.int32, device=device)
-        lat_valid = torch.zeros((0, *rows, width), dtype=torch.bool,
+        lat = torch.zeros((n_steps, *rows, width), dtype=torch.int32,
+                          device=device)
+        lat_valid = torch.zeros((n_steps, *rows, width), dtype=torch.bool,
                                 device=device)
     # Shift-register order: slot `n_steps % delay` holds the oldest frame.
     if delay > 1 and n_steps % delay:

@@ -614,6 +614,7 @@ def test_run_stream_rejects_bad_fault_args():
                                fault_mode="nope", device="cpu")
     with pytest.raises(ValueError, match="event"):
         tstream.run_stream(None, None, drives, cfg, mode="dense",
+                           route_mats=torch.zeros((8, 8, 64, 32)),
                            faults=fault, device="cpu")
     # Mask mode validates the schedule; reroute mode raises what degrading
     # the spec raises.

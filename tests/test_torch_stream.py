@@ -383,10 +383,17 @@ def test_latency_stats_match_reference():
 
 @pytest.mark.parametrize("kwargs", [dict(mode="dense")])
 def test_unported_options_raise(kwargs):
+    """Dense mode, ported since, raises the reference's ``ValueError``
+    without ``route_mats``, before any other argument is looked at."""
+    cfg_j = jnet.NetworkConfig(n_chips=2, chip=jchip.ChipConfig(**SMALL_CHIP))
     cfg = tnet.NetworkConfig(n_chips=2, chip=tchip.ChipConfig(**SMALL_CHIP))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError) as ref:
+        jstream.run_stream(None, None, jnp.zeros((1, 2, 1, 32)), cfg_j,
+                           **kwargs)
+    with pytest.raises(ValueError) as got:
         tstream.run_stream(None, None, torch.zeros((1, 2, 1, 32)), cfg,
                            device="cpu", **kwargs)
+    assert str(got.value) == str(ref.value) == "dense mode requires route_mats"
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

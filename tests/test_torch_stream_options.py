@@ -369,7 +369,7 @@ def test_argument_errors_match_reference(case):
 
     drives = np.zeros((2, n, BATCH, 32), np.float32)
     with pytest.raises(ValueError) as ref:
-        # The reference needs route_mats to reach its dense-mode checks.
+        # Both need route_mats to reach their dense-mode checks.
         jstream.run_stream(params_j, jnet.init_state(cfg_j, BATCH),
                            jnp.asarray(drives), cfg_j,
                            route_mats=jnp.zeros((n, n, 64, 32)), **side(0))
@@ -377,6 +377,6 @@ def test_argument_errors_match_reference(case):
         tstream.run_stream(params_t, tnet.init_state(cfg_t, BATCH,
                                                      device="cpu"),
                            torch.from_numpy(drives), cfg_t, device="cpu",
-                           **side(1))
+                           route_mats=torch.zeros((n, n, 64, 32)), **side(1))
     assert str(ref.value).startswith(start), str(ref.value)
     assert str(got.value) == str(ref.value)
