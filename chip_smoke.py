@@ -145,6 +145,18 @@ Phases, each reported on its own lines:
    B: ms a step and peak device memory; then 30 steps of R, the
    reference's training test's network (2 chips, T = 24): the mean loss
    of the last 5 steps must lie below that of the first 5.
+16. The fabric verifier on the card (``repro_torch.analysis.lint.run_lint(
+   device="cuda")``) over the whole catalogue at its real sizes
+   (FULL_BACKPLANE, PROJECTED_120CHIP, EXT_4CASE_96CHIP and its degraded
+   variants): the plan verifier, the program lint (``fabric_route_step``
+   gather and routed on the card, each plan's shrunk twin on gloo ranks
+   sharing the card, ``run_stream``), the pack units' write-set model
+   check, and the card check, which launches every body of the four
+   router kernels on the mask battery and reads each kernel's scatter
+   map off its output; zero errors, the findings per check, the launches
+   by body and the wall time.  Then the card check again under
+   ``compute-sanitizer`` memcheck and racecheck where the sanitizer
+   supports the card (the line says when it does not).
 
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -153,6 +165,7 @@ either it fails before printing a result.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import gc
@@ -3474,6 +3487,111 @@ def phase15(launches: dict, gpu: str) -> None:
         phase15_train(name, gpu)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the fabric verifier on the card
+# ---------------------------------------------------------------------------
+
+# The router kernels' wrappers by kernel name.
+ROUTER_WRAPPERS = {"spike_router": ops.route_and_pack,
+                   "merge_pack": ops.fused_merge_pack,
+                   "exchange": ops.fused_exchange,
+                   "exchange_stream": ops.fused_exchange_stream}
+
+
+# The card check under compute-sanitizer: memcheck for out-of-bounds and
+# misaligned accesses of every body, racecheck for the shared-memory scans
+# (pack.cuh's block_rank and the block scans).  Run in a child process with
+# the kernels built; it must exit 0 where the sanitizer supports the card.
+SANITIZED_CHECK = ("import sys; sys.path.insert(0, 'src'); "
+                   "from repro_torch.analysis import kernelcheck as kc; "
+                   "d = kc.check_router_kernels('cuda'); "
+                   "sys.exit('\\n'.join(x.format() for x in d) or None)")
+SANITIZER_TIMEOUT_S = 600
+
+
+def sanitized_card_check(gpu: str) -> None:
+    """Runs the card check under ``compute-sanitizer --tool memcheck`` and
+    ``--tool racecheck`` (``--error-exitcode 1``).  A toolkit without the
+    sanitizer, or a sanitizer that refuses the device, is printed as such:
+    the output checks of ``run_lint`` then stand alone."""
+    tool = pathlib.Path("/usr/local/cuda/bin/compute-sanitizer")
+    if not tool.exists():
+        print(f"phase 16: compute-sanitizer: not in the toolkit; the card "
+              f"check's output checks stand alone [{gpu}]", flush=True)
+        return
+    version = subprocess.run([str(tool), "--version"], capture_output=True,
+                             text=True).stdout.strip().splitlines()[-1]
+    root = pathlib.Path(__file__).resolve().parent
+    for what in ("memcheck", "racecheck"):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [str(tool), "--tool", what, "--error-exitcode", "1",
+             sys.executable, "-c", SANITIZED_CHECK], cwd=root,
+            capture_output=True, text=True, timeout=SANITIZER_TIMEOUT_S)
+        out = run.stdout + run.stderr
+        if "Device not supported" in out:
+            print(f"phase 16: compute-sanitizer ({version}) {what}: the "
+                  f"sanitizer refuses this card (\"Error: Device not "
+                  f"supported\") and the checked process then fails its "
+                  f"first allocation, so nothing ran under it; the card "
+                  f"check's output checks stand alone [{gpu}]", flush=True)
+            return
+        if run.returncode:
+            raise AssertionError(f"compute-sanitizer {what} of the card "
+                                 f"check exited {run.returncode}:\n"
+                                 f"{out[-3000:]}")
+        summary = [line for line in out.splitlines() if "SUMMARY" in line]
+        print(f"phase 16: compute-sanitizer ({version}) {what} of the card "
+              f"check: exit 0, {summary} in "
+              f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
+
+
+def phase16(launches: dict, gpu: str) -> None:
+    """``analysis.lint.run_lint(device="cuda")`` over the whole catalogue:
+    the plan verifier, the program lint (route steps on the card, the
+    sharded twins on gloo ranks sharing the card, run_stream), the pack
+    units' model check and the card check of every body of the four
+    router kernels.  Fails on any error; counts this process's launches
+    (the ranks' merge_pack launches are theirs)."""
+    from repro_torch.analysis import kernelcheck, lint
+    from repro_torch.analysis.diagnostics import WARNING, apply_suppressions
+    from repro_torch.analysis.suppressions import SUPPRESSIONS
+
+    for w in ROUTER_WRAPPERS.values():
+        reset_counts(w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seconds: dict = {}
+    findings = lint.run_lint(device="cuda", seconds=seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    active, suppressed = apply_suppressions(findings, SUPPRESSIONS)
+    for d in active:
+        print(f"phase 16: {d.format()}", flush=True)
+    per_check = dict(sorted(collections.Counter(
+        f"{d.check} ({d.severity})" for d in active).items()))
+    paths = {f"{k} {b}": n for k, w in ROUTER_WRAPPERS.items()
+             for b, n in w.launches_by_path.items() if n}
+    bodies = {f"{k} {kernelcheck.card_body(k, s)}"
+              for k, s, _ in kernelcheck.CARD_CASES}
+    for k, w in ROUTER_WRAPPERS.items():
+        launches[k] += w.launches
+    print(f"phase 16: fabric lint on the card: {len(findings)} findings, "
+          f"{len(suppressed)} suppressed; per check {per_check}; "
+          f"{len(kernelcheck.CARD_CASES) + 4} card cases over "
+          f"{len(bodies)} kernel bodies {sorted(bodies)}; launches by body "
+          f"in this process {paths}; wall time {wall:.1f} s, by pass "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} } [{gpu}]",
+          flush=True)
+    errors = [d for d in active if d.severity != WARNING]
+    if errors:
+        raise AssertionError(f"fabric lint: {len(errors)} error(s): "
+                             f"{[d.format() for d in errors[:5]]}")
+    if missing := {b for b in bodies if not paths.get(b)}:
+        raise AssertionError(f"the card check never ran {sorted(missing)}")
+    sanitized_card_check(gpu)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -3514,6 +3632,7 @@ def main() -> None:
     timed_phase("13", lambda: phase13(launches, gpu))
     timed_phase("14", lambda: phase14(launches, gpu))
     timed_phase("15", lambda: phase15(launches, gpu))
+    timed_phase("16", lambda: phase16(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

@@ -23,6 +23,7 @@ from repro_torch.snn import chip as chiplib
 from repro_torch.snn import network as netlib
 
 OCC_HEADLINE = 0.05                 # §IV paper-typical frame occupancy
+OCC_SWEEP = (0.02, 0.10, 0.50)
 
 # (name, per-level fan-ins leaf-first, cap_in, ingress capacity).  Chip k
 # lives in backplane k//12, case k//24, ...

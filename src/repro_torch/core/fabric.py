@@ -51,10 +51,11 @@ round on top of it without a recompile and without rerouting, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
-from typing import Iterable, NamedTuple, Sequence
+from typing import Iterable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -175,6 +176,15 @@ class LevelPlan:
     def degraded(self) -> bool:
         return self.uplink_ok is not None or self.downlink_ok is not None
 
+    def detour_counts(self) -> np.ndarray | None:
+        """Detours hosted per uplink edge (index = the *host* edge), the
+        static-analysis view of the extension-lane budget: every entry must
+        stay <= ``interconnect.EXTENSION_LANES``.  ``None`` when healthy."""
+        if self.detour is None:
+            return None
+        hosts = self.detour[self.detour >= 0]
+        return np.bincount(hosts, minlength=self.detour.shape[0])
+
 
 @dataclasses.dataclass(frozen=True)
 class FabricPlan:
@@ -215,6 +225,57 @@ class FabricPlan:
             out.append(self.n_nodes // gsize)
             gsize *= lvl.fan_in
         return tuple(out)
+
+    # -- introspection hooks (the static-analysis surface, analysis/) --
+    #
+    # The hop graph's addressing as plain numpy: which entity a leaf is at
+    # each tier, through which level a (src, dst) pair's traffic travels,
+    # and what the route-enable gate says there, so the plan verifier
+    # (analysis/planlint.py) can type every pair's delivery without
+    # re-deriving the executors' index arithmetic.
+
+    @property
+    def group_sizes(self) -> tuple[int, ...]:
+        """Leaves per tier-``i`` entity feeding level ``i``'s merge (tier 0 =
+        leaf): ``(1, f0, f0·f1, ...)``, one entry per level."""
+        out, g = [], 1
+        for lvl in self.levels:
+            out.append(g)
+            g *= lvl.fan_in
+        return tuple(out)
+
+    def leaf_entities(self, level: int) -> np.ndarray:
+        """int[n_nodes]: each leaf's tier-``level`` entity index, the
+        global uplink/downlink edge its traffic crosses into that level's
+        merge."""
+        return np.arange(self.n_nodes) // self.group_sizes[level]
+
+    def delivery_levels(self) -> np.ndarray:
+        """int32[n, n]: the unique hop-graph level through which ``src``'s
+        stream joins ``dst``'s merge, the lowest level whose joining node
+        covers both leaves (health and gating not applied)."""
+        n = self.n_nodes
+        out = np.full((n, n), -1, np.int32)
+        leaf = np.arange(n)
+        for i in reversed(range(self.n_levels)):
+            anc = leaf // (self.group_sizes[i] * self.levels[i].fan_in)
+            same = anc[:, None] == anc[None, :]
+            out = np.where(same, np.int32(i), out)
+        return out
+
+    def level_gate(self, level: int) -> np.ndarray:
+        """bool[n, n]: the route-enable gate the executors apply to (src,
+        dst) pairs whose traffic merges at ``level``:
+        ``enables[src_child, dst_child]`` plus the structural own-subtree
+        exclusion above level 0.  Only meaningful where
+        ``delivery_levels() == level``."""
+        lvl = self.levels[level]
+        child = self.leaf_entities(level) % lvl.fan_in
+        en = np.asarray(lvl.enables)
+        gate = en[np.ix_(child, child)]
+        if level > 0:
+            gate = gate & (child[:, None] != child[None, :])
+        return gate
 
     def merge_layout(self, cap_in: int) -> tuple[tuple[int, ...], ...]:
         """Per-level merge segment lengths for egress frames of ``cap_in``."""
@@ -1009,16 +1070,58 @@ def _from_wire(plane: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return plane.to(like.device)
 
 
-def _gather_plane(x: torch.Tensor, group) -> torch.Tensor:
+class WireCall(NamedTuple):
+    """One wire call of the sharded executor, as ``wire_log`` records it.
+
+    ``kind``: ``"all_gather"`` (``_gather_plane``) or ``"routed"``
+    (``_routed_plane``); ``level``: the fabric level whose process group
+    it ran on; ``dtype``: the plane's dtype before the ``uint8`` view
+    (``torch.int16`` for wire words, ``torch.int32`` for the timed lane);
+    ``bytes``: for an all-gather its output, the ``f`` planes of the group
+    (what the reference's program lint measures of an ``all_gather``);
+    for a routed call the planes this rank receives (what it measures of
+    the ``ppermute``s)."""
+
+    kind: str
+    level: int
+    dtype: torch.dtype
+    bytes: int
+
+
+_WIRE_LOG: list | None = None
+
+
+@contextlib.contextmanager
+def wire_log() -> Iterator[list]:
+    """Records every wire call of this process while the block runs, as
+    ``WireCall``s in call order (the program lint's collective checks read
+    them).  Outside such a block nothing is recorded."""
+    global _WIRE_LOG
+    outer, _WIRE_LOG = _WIRE_LOG, []
+    try:
+        yield _WIRE_LOG
+    finally:
+        _WIRE_LOG = outer
+
+
+def _record_wire(kind: str, level: int, x: torch.Tensor, nbytes: int) -> None:
+    if _WIRE_LOG is not None:
+        _WIRE_LOG.append(WireCall(kind, level, x.dtype, nbytes))
+
+
+def _gather_plane(x: torch.Tensor, group, level: int) -> torch.Tensor:
     """All-gather one level's stream plane over ``group``: ``x`` [b, L] on
     every rank → [b, f, L], row ``s`` from the rank in slot ``s``.  Counts
-    its calls and the bytes this rank receives."""
+    its calls and the bytes this rank receives, and records the call in
+    ``wire_log``."""
     f = dist.get_world_size(group)
     wire = _to_wire(x, group)
     parts = [torch.empty_like(wire) for _ in range(f)]
     dist.all_gather(parts, wire, group=group)
+    plane = wire.numel() * wire.element_size()
     _gather_plane.calls += 1
-    _gather_plane.bytes += (f - 1) * wire.numel() * wire.element_size()
+    _gather_plane.bytes += (f - 1) * plane
+    _record_wire("all_gather", level, x, f * plane)
     return _from_wire(torch.stack(parts, dim=-2), x)
 
 
@@ -1026,7 +1129,7 @@ _gather_plane.calls = 0
 _gather_plane.bytes = 0
 
 
-def _routed_plane(x: torch.Tensor, group, perms) -> torch.Tensor:
+def _routed_plane(x: torch.Tensor, group, perms, level: int) -> torch.Tensor:
     """Reconstruct one level's [b, f, L] plane edge-wise.
 
     The own slot never travels (every rank already holds its entity's
@@ -1036,13 +1139,15 @@ def _routed_plane(x: torch.Tensor, group, perms) -> torch.Tensor:
     posts its send to slot ``me + r`` and its receive from slot ``me - r``
     where that pair is in the rotation.  A pruned pair posts nothing on
     either side and its row stays zero, which decodes as invalid.  Counts
-    the sends, the receives and the bytes this rank receives.
+    the sends, the receives and the bytes this rank receives, and records
+    the call in ``wire_log``.
     """
     f, me = dist.get_world_size(group), dist.get_rank(group)
     wire = _to_wire(x, group)
     plane = torch.zeros((f, *wire.shape), dtype=wire.dtype,
                         device=wire.device)
     plane[me] = wire
+    received = 0
     for r, perm in enumerate(perms, start=1):
         dst, src = (me + r) % f, (me - r) % f
         ops = []
@@ -1054,10 +1159,12 @@ def _routed_plane(x: torch.Tensor, group, perms) -> torch.Tensor:
             ops.append(dist.P2POp(dist.irecv, plane[src],
                                   dist.get_global_rank(group, src), group))
             _routed_plane.recvs += 1
-            _routed_plane.bytes += wire.numel() * wire.element_size()
+            received += wire.numel() * wire.element_size()
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+    _routed_plane.bytes += received
+    _record_wire("routed", level, x, received)
     return _from_wire(plane.movedim(0, -2).contiguous(), x)
 
 
@@ -1175,13 +1282,13 @@ def fabric_exchange(frame: EventFrame, mesh, fwd_table: torch.Tensor,
                 recv_ok = d_ok if recv_ok is None else recv_ok & d_ok
 
         if routed:
-            g_words = _routed_plane(cur_words, group, perms[i])
+            g_words = _routed_plane(cur_words, group, perms[i], i)
             g_times = (None if timing is None
-                       else _routed_plane(cur_times, group, perms[i]))
+                       else _routed_plane(cur_times, group, perms[i], i))
         else:
-            g_words = _gather_plane(cur_words, group)
+            g_words = _gather_plane(cur_words, group, i)
             g_times = (None if timing is None
-                       else _gather_plane(cur_times, group))
+                       else _gather_plane(cur_times, group, i))
         seg = g_words.shape[-1]
         if flow_ok is not None:
             # Gathered slot s holds the entity (leaf // gnext) * f + s.

@@ -16,6 +16,40 @@ from repro_torch.core.latency import queue_wait_i32
 from repro_torch.core.routing import lookup_fwd, lookup_rev
 
 
+def pack_indices(ok: torch.Tensor, capacity: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter index map of the global pack unit, the twin of the
+    reference's ``spike_router._pack_indices``: exclusive-prefix-sum ranks
+    bounded by ``capacity``, rejected events parked in overflow slot
+    ``capacity``.  ``ok``: int or bool ``[..., n]``, each row one stream.
+    Returns ``(idx int32[..., n], keep bool[..., n])``.  This is the
+    write-set of every pack unit (``make_frame``, the kernels' scans in
+    ``csrc/pack.cuh``); ``analysis.kernelcheck`` model-checks it."""
+    ok = ok.to(torch.int32)
+    pos = torch.cumsum(ok, dim=-1, dtype=torch.int32) - ok
+    keep = (ok == 1) & (pos < capacity)
+    return torch.where(keep, pos, capacity), keep
+
+
+def pack_segmented_indices(ok: torch.Tensor, capacity: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter index map of the segmented pack unit, the twin of
+    ``spike_router._pack_segmented_indices`` (``ok``: ``[..., n_seg,
+    seg_len]``): per-segment exclusive ranks plus an exclusive scan over
+    the segment totals for the base offsets, so ``base[seg] + within`` is
+    the global arrival rank.  Returns ``(idx, keep)`` on the flattened
+    stream ``[..., n_seg · seg_len]``, overflow parked in slot
+    ``capacity`` as in ``pack_indices``."""
+    ok = ok.to(torch.int32)
+    counts = ok.sum(dim=-1, dtype=torch.int32)
+    base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
+    within = torch.cumsum(ok, dim=-1, dtype=torch.int32) - ok
+    pos = (base[..., None] + within).flatten(-2)
+    okf = ok.flatten(-2)
+    keep = (okf == 1) & (pos < capacity)
+    return torch.where(keep, pos, capacity), keep
+
+
 def dest_queue_ns(capacity: int, queue: tuple[int, int, int],
                   device) -> torch.Tensor:
     """Destination-side queueing delay by pack rank (== output slot)."""

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.snn.chip import WEIGHT_MAX
+from repro_torch.snn.neuron import clip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +72,10 @@ def _traces(trace_pre, trace_post, pre, post, cfg: STDPConfig):
 
 def _new_weights(weights, e1, e2, cfg: STDPConfig, batch: int = 1):
     """``clip(w + ((lr_pot·E1 − lr_dep·E2) / batch)·WEIGHT_MAX, 0,
-    WEIGHT_MAX)`` with the reference's roundings."""
+    WEIGHT_MAX)`` with the reference's roundings; ``neuron.clip`` gives a
+    weight on a bound ``jnp.clip``'s half gradient."""
     dw = _fma(cfg.lr_pot, e1, -(e2 * _f32(cfg.lr_dep))) / batch
-    return torch.clamp(_fma(float(WEIGHT_MAX), dw, weights), 0.0, WEIGHT_MAX)
+    return clip(_fma(float(WEIGHT_MAX), dw, weights), 0.0, WEIGHT_MAX)
 
 
 class STDPState(NamedTuple):

@@ -358,3 +358,64 @@ def test_train_step_card_matches_cpu(cuda_device):
     ref_w = p_c.chips.weights.numpy()
     bound = cfg.lr * GRAD_TOL * scale + np.spacing(np.abs(ref_w))
     assert (np.abs(p_g.chips.weights.cpu().numpy() - ref_w) <= bound).all()
+
+
+# ---------------------------------------------------------------------------
+# Gradients through plastic dense runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("on_bounds", [False, True])
+@pytest.mark.parametrize("plastic", ["shared", "slot"])
+def test_plastic_dense_gradient_matches_reference(plastic, on_bounds):
+    """The gradient of ``sum(spikes · c)`` over an 8-step plastic dense run
+    with respect to the chip weights, ``torch.autograd.grad`` against
+    ``jax.grad``, within 1e-5 × max|g|.  The chips integrate the
+    plasticity's weights, which start as the parameters' and pass the
+    weight clip every step; ``on_bounds`` puts every 5th weight on 0 and
+    every 7th on 63, where ``jnp.clip`` passes half the gradient."""
+    from repro.snn import plasticity as jplas
+    from repro.snn import stream as jstream
+    from repro_torch.snn import plasticity as tplas
+    from repro_torch.snn import stream as tstream
+    from test_torch_dense import BATCH, dense_inputs, network
+
+    cfg_j, params_j, cfg_t, params_t = network(delay=1, dyadic=False)
+    w0 = np.array(params_j.chips.weights)
+    if on_bounds:
+        flat = w0.reshape(-1)
+        flat[::5] = 0.0
+        flat[3::7] = 63.0
+    mats_j = jnet.routing_matrices(params_j, cfg_j)
+    mats_t = tnet.routing_matrices(params_t, cfg_t)
+    drives, _ = dense_inputs(cfg_t, 8, 31)
+    c = np.random.default_rng(32).random(
+        (8, cfg_t.n_chips, BATCH, cfg_t.chip.n_neurons)).astype(np.float32)
+    state_j = jnet.init_state(cfg_j, BATCH)
+    state_t = tnet.init_state(cfg_t, BATCH, device="cpu")
+    init_j = (jnet.init_slot_plasticity if plastic == "slot"
+              else jnet.init_stream_plasticity)
+    init_t = (tnet.init_slot_plasticity if plastic == "slot"
+              else tnet.init_stream_plasticity)
+
+    def loss_j(w):
+        p = params_j._replace(chips=params_j.chips._replace(weights=w))
+        out = jstream.run_stream(
+            p, state_j, jnp.asarray(drives), cfg_j, mode="dense",
+            route_mats=mats_j, plasticity=jplas.STDPConfig(),
+            plasticity_state=init_j(p, BATCH))
+        return (out.spikes * jnp.asarray(c)).sum()
+
+    ref = np.asarray(jax.grad(loss_j)(jnp.asarray(w0)))
+    w = T(w0).requires_grad_(True)
+    p = params_t._replace(chips=params_t.chips._replace(weights=w))
+    out = tstream.run_stream(p, state_t, T(drives), cfg_t, mode="dense",
+                             route_mats=mats_t, plasticity=tplas.STDPConfig(),
+                             plasticity_state=init_t(p, BATCH), device="cpu")
+    (got,) = torch.autograd.grad((out.spikes * T(c)).sum(), w)
+    scale = np.abs(ref).max()
+    assert scale > 0
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= GRAD_TOL * scale, (plastic, on_bounds, err / scale)
+    if on_bounds:
+        assert int(((w0 == 0) | (w0 == 63)).sum()) > 1000
