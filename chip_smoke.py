@@ -158,6 +158,21 @@ Phases, each reported on its own lines:
    ``compute-sanitizer`` memcheck and racecheck where the sanitizer
    supports the card (the line says when it does not).
 
+17. The RWKV6, dense and MoE families: the linear scan's ``bonus`` mode at
+   rwkv6-7b's shape (b4 h64 t2048, the per-channel body) and flash
+   attention at gemma-7b's d = 256 and smollm-135m's d = 64 (GQA group 3)
+   against their plain versions, with time per launch, bound and SDPA's
+   time; ``serve.generate`` at phase 5's batch, prompt and new tokens for
+   rwkv6-7b, smollm-135m, gemma-7b, qwen3-8b and phi3-medium-14b at full
+   width and depth and grok-1-314b at full width and 2 of its 64 layers
+   (random float32 weights, bf16 activations), each with its launches by
+   body checked (two prefills: the scan's per-channel body per RWKV6
+   layer, wgmma per attention layer), prefill and decode times, peak
+   device memory (phi3 under 70 GiB), a profiler pass over one prefill
+   and grok-1's dropped share per layer; then rwkv6-7b and gemma-7b at 2
+   full-width float32 layers on the card against the CPU (prefill logits
+   and every cache leaf).
+
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it fails before printing a result.
@@ -209,6 +224,7 @@ from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
 from repro_torch.kernels.spike_router import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import moe as moelib  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.snn import network as netlib  # noqa: E402
 from repro_torch.snn import neuron as nrn  # noqa: E402
@@ -987,7 +1003,7 @@ BF16_ULP = 2.0 ** -7
 
 
 def check_close(what: str, got, want, rel: float, abs_tol: float,
-                reason: str) -> float:
+                reason: str, phase: str = "2") -> float:
     """Elementwise |got - want| <= rel·|want| + abs_tol, finite; prints the
     max abs error beside the tolerance and its reason, raises if exceeded."""
     got, want = got.float(), want.float()
@@ -995,7 +1011,7 @@ def check_close(what: str, got, want, rel: float, abs_tol: float,
     err = float(diff.max())
     excess = float((diff - rel * want.abs()).max())
     ok = bool(torch.isfinite(got).all()) and excess <= abs_tol
-    print(f"phase 2: {what}: max abs err {err:.3g} (max |ref| "
+    print(f"phase {phase}: {what}: max abs err {err:.3g} (max |ref| "
           f"{float(want.abs().max()):.3g}); tolerance |err| <= {rel:.3g}"
           f"·|ref| + {abs_tol:.3g}: {reason}: {'ok' if ok else 'EXCEEDED'}",
           flush=True)
@@ -1013,6 +1029,31 @@ def unique_bytes(t: torch.Tensor) -> int:
         if stride:
             n *= size
     return n * t.element_size()
+
+
+def flash_bound(q, k, v) -> tuple[float, str]:
+    """Causal attention's bound: q, k, v read once and the output written
+    once; the two products over the causal half (keys at or before each
+    query), at the bf16 tensor-core rate."""
+    b, h, s, d = q.shape
+    nbytes = sum(map(unique_bytes, (q, k, v))) + q.numel() * q.element_size()
+    return bound(nbytes, 4 * b * h * d * (s * (s + 1) // 2), BF16_OPS_PER_S)
+
+
+def scan_bound(q, k, v, w, u=None) -> tuple[float, str]:
+    """The scan's bound: the distinct bytes of q, k, v, w (and u) read once
+    and y written once; the chunked form's multiply-adds per chunk
+    (inter-chunk and carry products, and the causal half of A and of
+    A @ V), at the bf16 tensor-core rate."""
+    kdim, vdim = q.shape[-1], v.shape[-1]
+    bsz, heads, t = q.shape[:3]
+    chunk = scan_ops.chunk_for(t)
+    nbytes = (sum(unique_bytes(a) for a in (q, k, v, w, u) if a is not None)
+              + v.numel() * q.element_size())
+    per_chunk = 2 * (2 * chunk * kdim * vdim
+                     + chunk * (chunk + 1) // 2 * (kdim + vdim))
+    return bound(nbytes, bsz * heads * -(-t // chunk) * per_chunk,
+                 BF16_OPS_PER_S)
 
 
 def flash_inputs(gen, b, hq, hkv, s, d, dtype, v_view=False):
@@ -1046,16 +1087,23 @@ def mamba_inputs(gen, b, h, t, st, hd, dtype):
     return q, k, v, w, None
 
 
-def rwkv_inputs(gen, b, h, t, kd, dtype):
+def rwkv_inputs(gen, b, h, t, kd, dtype, views=False):
     """Bonus-mode operands at RWKV6's shapes: per-channel data-dependent
     decays w = -exp(base + noise), base from -6 to -0.5 across channels,
-    and a bonus u."""
+    and a bonus u.  With ``views`` the same values are laid out as
+    ``rwkv6_time_mix`` hands them to the kernel: [b, t, h, kd] tensors seen
+    as [b, h, t, kd], and w rounded to ``dtype``."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=DEV)
     base = torch.linspace(-6.0, -0.5, h * kd, device=DEV).reshape(h, kd)
     w = -torch.exp(base[None, :, None, :] + 0.5 * rnd(b, h, t, kd))
-    return (rnd(b, h, t, kd).to(dtype), (0.5 * rnd(b, h, t, kd)).to(dtype),
-            rnd(b, h, t, kd).to(dtype), w, 0.5 * rnd(h, kd))
+    q, k, v = (rnd(b, h, t, kd).to(dtype), (0.5 * rnd(b, h, t, kd)).to(dtype),
+               rnd(b, h, t, kd).to(dtype))
+    u = 0.5 * rnd(h, kd)
+    if views:
+        q, k, v, w = (a.transpose(1, 2).contiguous().transpose(1, 2)
+                      for a in (q, k, v, w.to(dtype)))
+    return q, k, v, w, u
 
 
 def one_body(fn, counts: dict, body: str):
@@ -1068,22 +1116,86 @@ def one_body(fn, counts: dict, body: str):
     return out
 
 
+F32_REASON = "float32 sums in another order than the plain version"
+BF16_REASON = ("bf16 output, one ulp apart where the two f32 results round "
+               "apart")
+# The wgmma body rounds P to bf16 (as the Pallas body's p.astype(v.dtype)
+# does on the TPU's MXU).  Against attention_ref, which keeps P in f32, each
+# weight moves by at most half a bf16 ulp (2^-8 of itself) and l sums the
+# unrounded weights: the output moves by at most 2^-8·max|v|.  Against the
+# blocked twin, which rounds P too, a weight whose f32 value differs in the
+# last bits between the two sides' score sums may round one ulp apart; the
+# same bound holds, and at most FLIP_SHARE of the outputs may leave the
+# bf16 output tolerance above.
+P_REASON = "P rounded to bf16 (2^-8·max|v|) and one bf16 ulp of output"
+FLIP_SHARE = 1e-3
+SCAN_REASON = ("bf16 output one ulp apart, and __expf and float32 sums and "
+               "cumsums in another order (1e-3 of the output's scale)")
+
+
+def flash_check(name: str, q, k, v, causal: bool, body: str,
+                phase: str = "2") -> float:
+    """One flash-attention launch, which must take ``body``, against
+    attention_ref and (bf16) against attention_blocked_ref at the body's
+    KV tile, within the tolerances above.  Returns the max abs error."""
+    counts = flash_ops.flash_attention.launches_by_path
+    got = one_body(lambda: flash_ops.flash_attention(q, k, v, causal=causal),
+                   counts, body)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if body == "f32":
+        return check_close(f"flash_attention {name}", got, want, 0.0, 2e-5,
+                           F32_REASON, phase)
+    p_tol = 2.0 ** -8 * float(v.float().abs().max())
+    err = check_close(f"flash_attention {name} vs attention_ref", got, want,
+                      BF16_ULP, p_tol, P_REASON, phase)
+    del want
+    twin = attention_blocked_ref(q, k, v, causal=causal,
+                                 block_kv=flash_ops.block_kv_for(q.shape[-1]))
+    err = max(err, check_close(
+        f"flash_attention {name} vs attention_blocked_ref", got, twin,
+        BF16_ULP, p_tol, P_REASON, phase))
+    diff = (got.float() - twin.float()).abs()
+    over = int((diff > BF16_ULP * twin.float().abs() + 1e-5).sum())
+    print(f"phase {phase}: flash_attention {name}: {over} of {got.numel()} "
+          f"outputs beyond {BF16_ULP:.3g}·|twin| + 1e-5 ({BF16_REASON}; "
+          f"at most {FLIP_SHARE:.0e} of them may be, where a bf16 P rounds "
+          f"apart)", flush=True)
+    if over > FLIP_SHARE * got.numel():
+        raise AssertionError(f"flash_attention {name}: {over} outputs "
+                             f"beyond the bf16 tolerance")
+    return err
+
+
+def scan_check(name: str, args, mode: str, body: str, tol,
+               phase: str = "2") -> float:
+    """One linear-scan launch, which must take ``body``, against
+    linear_scan_chunked (and the scalar-decay twin for that body), within
+    ``tol`` = (rel, abs as a share of max|ref|, reason).  Returns the max
+    abs error."""
+    rel, abs_rel, reason = tol
+    got = one_body(lambda: scan_ops.linear_scan(*args, mode=mode),
+                   scan_ops.linear_scan.launches_by_path, body)
+    chunk = scan_ops.chunk_for(args[0].shape[2])
+    wants = {"linear_scan_chunked": linear_scan_chunked(
+        *args, mode=mode, chunk=chunk)}
+    if body == "scalar_decay":
+        wants["linear_scan_scalar_decay_ref"] = \
+            linear_scan_scalar_decay_ref(*args[:4])
+    torch.cuda.synchronize()
+    err = 0.0
+    for ref_name, want in wants.items():
+        want = want.to(got.dtype)
+        abs_tol = abs_rel * float(want.float().abs().max())
+        err = max(err, check_close(
+            f"linear_scan {name} ({body}) vs {ref_name}", got, want, rel,
+            abs_tol, reason, phase))
+    return err
+
+
 def phase2_lm(results: dict) -> None:
     gen = torch.Generator(device=DEV).manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
-    f32_reason = "float32 sums in another order than the plain version"
-    bf16_reason = ("bf16 output, one ulp apart where the two f32 results "
-                   "round apart")
-    # The wgmma body rounds P to bf16 (as the Pallas body's p.astype(v.dtype)
-    # does on the TPU's MXU).  Against attention_ref, which keeps P in f32,
-    # each weight moves by at most half a bf16 ulp (2^-8 of itself) and l
-    # sums the unrounded weights: the output moves by at most 2^-8·max|v|.
-    # Against the blocked twin, which rounds P too, a weight whose f32 value
-    # differs in the last bits between the two sides' score sums may round
-    # one ulp apart; the same bound holds, and at most FLIP_SHARE of the
-    # outputs may leave the bf16 output tolerance above.
-    p_reason = "P rounded to bf16 (2^-8·max|v|) and one bf16 ulp of output"
-    flip_share = 1e-3
 
     # Flash attention.  (case, (b, hq, hkv, s, d, dtype, v_view), causal,
     # body)
@@ -1101,48 +1213,15 @@ def phase2_lm(results: dict) -> None:
         ("f32: b1 h4/2 s1000 d64 not causal", (1, 4, 2, 1000, 64, f32, False),
          False, "f32"),
     )
-    counts = flash_ops.flash_attention.launches_by_path
     err = 0.0
     for i, (name, shape, causal, body) in enumerate(flash_cases):
         q, k, v = flash_inputs(gen, *shape)
-        got = one_body(lambda: flash_ops.flash_attention(q, k, v,
-                                                         causal=causal),
-                       counts, body)
-        want = attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        if body == "f32":
-            err = max(err, check_close(f"flash_attention {name}", got, want,
-                                       0.0, 2e-5, f32_reason))
-            continue
-        p_tol = 2.0 ** -8 * float(v.float().abs().max())
-        err = max(err, check_close(f"flash_attention {name} vs attention_ref",
-                                   got, want, BF16_ULP, p_tol, p_reason))
-        twin = attention_blocked_ref(q, k, v, causal=causal,
-                                     block_kv=flash_ops.block_kv_for(
-                                         shape[4]))
-        err = max(err, check_close(
-            f"flash_attention {name} vs attention_blocked_ref", got, twin,
-            BF16_ULP, p_tol, p_reason))
-        diff = (got.float() - twin.float()).abs()
-        over = int((diff > BF16_ULP * twin.float().abs() + 1e-5).sum())
-        print(f"phase 2: flash_attention {name}: {over} of {got.numel()} "
-              f"outputs beyond {BF16_ULP:.3g}·|twin| + 1e-5 ({bf16_reason}; "
-              f"at most {flip_share:.0e} of them may be, where a bf16 P "
-              f"rounds apart)", flush=True)
-        if over > flip_share * got.numel():
-            raise AssertionError(f"flash_attention {name}: {over} outputs "
-                                 f"beyond the bf16 tolerance")
+        err = max(err, flash_check(name, q, k, v, causal, body))
         if i == 0:
             main = (q, k, v)
-        del got, want, twin, diff
     q, k, v = main
-    b, h, s, d = q.shape
-    scale = 1.0 / d ** 0.5
-    # Bytes: q, k, v read once, the output written once; operations: the
-    # two products over the causal half (keys at or before each query).
-    nbytes = 4 * q.numel() * q.element_size()
-    nops = 4 * b * h * d * (s * (s + 1) // 2)
-    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    b_ms, b_by = flash_bound(q, k, v)
     q32, k32, v32 = q.float(), k.float(), v.float()
     results["flash_attention"] = dict(
         max_abs_err=err,
@@ -1156,8 +1235,6 @@ def phase2_lm(results: dict) -> None:
     del main, q, k, v, q32, k32, v32
 
     # Linear scan.  (case, make inputs, mode, body, tolerance)
-    scan_reason = ("bf16 output one ulp apart, and __expf and float32 sums "
-                   "and cumsums in another order (1e-3 of the output's scale)")
     tc_reason = ("bf16 output one ulp apart, TF32 products, __expf and sums "
                  "in another order (1e-3 of the output's scale)")
 
@@ -1174,10 +1251,10 @@ def phase2_lm(results: dict) -> None:
          "scalar_decay", (BF16_ULP, 1e-3, tc_reason)),
         ("per-channel body on mamba2's operands, w dense: b2 h16 t1000 bf16",
          lambda: dense_w(mamba_inputs(gen, 2, 16, 1000, 64, 64, bf16)),
-         "inclusive", "per_channel", (BF16_ULP, 1e-3, scan_reason)),
+         "inclusive", "per_channel", (BF16_ULP, 1e-3, SCAN_REASON)),
         ("bonus: rwkv6 b2 h64 t1024 k64 v64 bf16",
          lambda: rwkv_inputs(gen, 2, 64, 1024, 64, bf16), "bonus",
-         "per_channel", (BF16_ULP, 1e-3, scan_reason)),
+         "per_channel", (BF16_ULP, 1e-3, SCAN_REASON)),
         ("strong decays up to e^-10 per step: b1 h8 t512 f32 inclusive",
          lambda: (*(torch.randn((1, 8, 512, 64), generator=gen, device=DEV)
                     for _ in range(3)),
@@ -1187,42 +1264,15 @@ def phase2_lm(results: dict) -> None:
          (0.0, 1e-3, "__expf and float32 cumsums in another order at "
           "|b| ~ 300 (1e-3 of the output's scale)")),
     )
-    counts = scan_ops.linear_scan.launches_by_path
     err = 0.0
-    for i, (name, make, mode, body, (rel, abs_rel, reason)) in \
-            enumerate(scan_cases):
+    for i, (name, make, mode, body, tol) in enumerate(scan_cases):
         args = make()
-        got = one_body(lambda: scan_ops.linear_scan(*args, mode=mode),
-                       counts, body)
-        chunk = scan_ops.chunk_for(args[0].shape[2])
-        wants = {"linear_scan_chunked": linear_scan_chunked(
-            *args, mode=mode, chunk=chunk)}
-        if body == "scalar_decay":
-            wants["linear_scan_scalar_decay_ref"] = \
-                linear_scan_scalar_decay_ref(*args[:4])
-        torch.cuda.synchronize()
-        for ref_name, want in wants.items():
-            want = want.to(got.dtype)
-            abs_tol = abs_rel * float(want.float().abs().max())
-            err = max(err, check_close(
-                f"linear_scan {name} ({body}) vs {ref_name}", got, want, rel,
-                abs_tol, reason))
+        err = max(err, scan_check(name, args, mode, body, tol))
         if i == 0:
             main = args
-        del args, got, wants
+        del args
     q, k, v, w, _ = main
-    kdim, vdim = q.shape[-1], v.shape[-1]
-    bsz, heads, t = q.shape[:3]
-    chunk = scan_ops.chunk_for(t)
-    # Bytes: the distinct bytes of q, k, v, w read once and y written once.
-    # Operations: the chunked form's multiply-adds per chunk (inter-chunk
-    # and carry products, and the causal half of A and of A @ V).
-    nbytes = (sum(map(unique_bytes, (q, k, v, w)))
-              + v.numel() * q.element_size())
-    per_chunk = 2 * (2 * chunk * kdim * vdim
-                     + chunk * (chunk + 1) // 2 * (kdim + vdim))
-    nops = bsz * heads * (t // chunk) * per_chunk
-    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    b_ms, b_by = scan_bound(q, k, v, w)
     w_dense = w.contiguous()
     results["linear_scan"] = dict(
         max_abs_err=err,
@@ -3592,6 +3642,282 @@ def phase16(launches: dict, gpu: str) -> None:
     sanitized_card_check(gpu)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the RWKV6, dense and MoE families served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers run or None for full depth).  Every config runs at full
+# width with float32 parameters (count_params x 4: rwkv6-7b 30.1 GB,
+# smollm-135m 0.5, gemma-7b 34.2, qwen3-8b 32.8, phi3-medium-14b 58.6);
+# grok-1-314b at 2 of its 64 layers, 45.8 GB (each layer's 8 experts take
+# 19.3 GB in float32).
+FAMILIES = (("rwkv6-7b", None), ("smollm-135m", None), ("gemma-7b", None),
+            ("qwen3-8b", None), ("phi3-medium-14b", None),
+            ("grok-1-314b", 2))
+FAMILY_PEAK_LIMIT = 70 * 2**30   # phi3-medium-14b runs at full depth within it
+# The card against the CPU: 2 full-width layers, float32 on both sides
+# (the kernels' f32 and per-channel bodies); cuBLAS and the kernels sum in
+# another order than the CPU's BLAS and the plain versions.  Logits as
+# phase 6; every cache leaf within 1e-4 of its largest value.
+# grok-1-314b's check (45.8 GB of float32 parameters on each side) puts a
+# first prompt row of token 0, whose embedding is zeroed: the router then
+# sees zero rows and gives all 8 experts exactly 1/8, so the card's top-k
+# must break the tie as the CPU's does (lower index first), and the tied
+# events fill experts 0 and 1 to capacity, so events drop.  Each MoE
+# layer must drop the same number of events on both sides.
+FAMILY_CHECKS = ("rwkv6-7b", "gemma-7b", "grok-1-314b")
+FAMILY_CHECK_LAYERS = 2
+FAMILY_CACHE_TOL = 1e-4
+# The attention configs whose prefill shape family_kernels checks.
+FLASH_FAMILIES = ("gemma-7b", "smollm-135m", "qwen3-8b", "phi3-medium-14b",
+                  "grok-1-314b")
+
+
+def family_kernels(gpu: str) -> None:
+    """Each kernel on the shape a new family's prefill gives it, against
+    its plain version; time per launch, plain time, bound and SDPA's."""
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    bf16 = torch.bfloat16
+    args = rwkv_inputs(gen, 4, 64, 2048, 64, bf16, views=True)
+    name = "rwkv6-7b main path: b4 h64 t2048 k64 v64 bf16 bonus"
+    err = scan_check(name, args, "bonus", "per_channel",
+                     (BF16_ULP, 1e-3, SCAN_REASON), "17")
+    b_ms, b_by = scan_bound(*args)
+    chunk = scan_ops.chunk_for(args[0].shape[2])
+    ms = graph_ms(lambda: scan_ops.linear_scan(*args, mode="bonus"), 10, 5)
+    plain = eager_ms(lambda: linear_scan_chunked(*args, mode="bonus",
+                                                 chunk=chunk), 2, 1)
+    print(f"phase 17: linear_scan {name} (per_channel): kernel {ms:.4f} ms "
+          f"(graph replay), plain {plain:.4f} ms (linear_scan_chunked), "
+          f"library none, bound {b_ms:.4f} ms ({b_by}), max abs err "
+          f"{err:.3g} [{gpu}]", flush=True)
+    del args
+    for arch in FLASH_FAMILIES:
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        name = (f"{arch} main path: b{LM_BATCH} h{hq}/{hkv} s{LM_PROMPT} "
+                f"d{d} bf16 causal")
+        shape = (LM_BATCH, hq, hkv, LM_PROMPT, d, bf16, True)
+        q, k, v = flash_inputs(gen, *shape)
+        err = flash_check(name, q, k, v, True, "wgmma", "17")
+        b_ms, b_by = flash_bound(q, k, v)
+        block = flash_ops.block_kv_for(q.shape[-1])
+        ms = graph_ms(lambda: flash_ops.flash_attention(q, k, v), 10, 5)
+        plain = eager_ms(lambda: attention_blocked_ref(q, k, v,
+                                                       block_kv=block), 2, 1)
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10, 5)
+        print(f"phase 17: flash_attention {name} (wgmma, {block}-key tiles, "
+              f"v a transposed view): kernel {ms:.4f} ms (graph replay), "
+              f"plain {plain:.4f} ms (attention_blocked_ref), SDPA "
+              f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max abs err "
+              f"{err:.3g} [{gpu}]", flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+def family_bodies(cfg) -> dict:
+    """Launches by body of one prefill: RWKV6 layers scan through the
+    per-channel body (bonus mode), attention layers through wgmma."""
+    n = cfg.n_layers
+    rwkv = cfg.ssm == "rwkv6"
+    return {"wgmma": 0 if rwkv else n, "f32": 0, "scalar_decay": 0,
+            "per_channel": n if rwkv else 0}
+
+
+def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
+    cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
+    full = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=depth or full)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=DEV).manual_seed(0), cfg,
+                            DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"phase 17: {arch}, {cfg.n_layers} of {full} layers"
+          f"{'' if cfg.n_layers == full else ' (depth cut)'}, full width "
+          f"(d_model {cfg.d_model}), {n_params:.4g} float32 parameters "
+          f"({n_params * 4 / 2**30:.2f} GiB) on the card in "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
+    prompts = torch.randint(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(1), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    tokens, stats = serve.generate(cfg, params, prompts, LM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, paths = lm_counts(), lm_paths()
+    peak = torch.cuda.max_memory_allocated()
+    # generate's warm pass runs a second prefill before the timed one.
+    want = {body: 2 * n for body, n in family_bodies(cfg).items()}
+    if paths != want:
+        raise AssertionError(f"{arch} generate: bodies {paths}, expected "
+                             f"{want}")
+    for k, n in counts.items():
+        launches[k] += n
+    if tokens.shape != (LM_BATCH, LM_NEW) or tokens.dtype != torch.int32 \
+            or not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: bad tokens {tokens.dtype}"
+                             f"{tuple(tokens.shape)}")
+    if arch == "phi3-medium-14b" and peak > FAMILY_PEAK_LIMIT:
+        raise AssertionError(f"{arch} at {cfg.n_layers} layers peaks at "
+                             f"{peak / 2**30:.2f} GiB, over "
+                             f"{FAMILY_PEAK_LIMIT / 2**30:.0f} GiB")
+    print(f"phase 17: {arch} generate batch {LM_BATCH} x prompt {LM_PROMPT} "
+          f"+ {LM_NEW} new tokens (greedy, bf16 activations, warm pass "
+          f"included in the {wall:.2f} s wall): prefill "
+          f"{stats.prefill_s * 1e3:.1f} ms "
+          f"({LM_BATCH * LM_PROMPT / stats.prefill_s:.0f} prompt tokens/s), "
+          f"decode {stats.decode_s / LM_NEW * 1e3:.1f} ms/step = "
+          f"{stats.tokens_per_s:.1f} tokens/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
+          f"before the call), launches {counts}, by body {paths} [{gpu}]",
+          flush=True)
+
+    # One prefill under the profiler.
+    out = {}
+
+    def one_prefill():
+        out["logits"], _, _ = lm.prefill(params, {"tokens": prompts}, cfg)
+
+    reset_lm_counts()
+    line = device_breakdown(one_prefill, per=1, unit="prefill",
+                            ours=("attn_wgmma_kernel", "scan_kernel"))
+    print(f"phase 17: {arch} prefill: {line} [{gpu}]", flush=True)
+    if lm_paths() != family_bodies(cfg):
+        raise AssertionError(f"{arch}: one prefill launched {lm_paths()}")
+    if cfg.n_experts:
+        drops = moe_drops(params, prompts, cfg, out["logits"])
+        cap = moelib.expert_capacity(LM_BATCH * LM_PROMPT, cfg)
+        events = LM_BATCH * LM_PROMPT * cfg.top_k
+        print(f"phase 17: {arch} prefill dropped events by layer {drops} "
+              f"of {events}, dropped_frac "
+              f"{[round(d / events, 6) for d in drops]} (top-{cfg.top_k} of "
+              f"{cfg.n_experts} experts, capacity factor "
+              f"{cfg.capacity_factor}: {cap} events per expert)", flush=True)
+    logits = out["logits"]
+    if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: prefill logits "
+                             f"{tuple(logits.shape)} finite="
+                             f"{bool(torch.isfinite(logits).all())}")
+    del params, logits, out, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def moe_drops(params, prompts, cfg, logits) -> list[int]:
+    """Each MoE layer's dropped events over one prefill of ``prompts``
+    (``moe_forward``'s dropped share times the routed events: the share's
+    last float32 bit depends on the device's division, the count does
+    not), from the stack run layer by layer as ``decoder_layer`` runs it.
+    Its last-position logits must equal ``logits``, the prefill's, bit for
+    bit."""
+    x = lm.embed_tokens(prompts, params["embed"], cfg)
+    kw = dict(mode="prefill", cache=None, cache_index=None,
+              positions=torch.arange(x.shape[1], device=x.device)[None, :])
+    drops = []
+    for seg in lm._segments(cfg):
+        for i in range(seg.n_layers):
+            p = params[seg.name].layer(i)
+            if not seg.moe:
+                x, _, _ = lm.decoder_layer(p, x, cfg, moe=False, **kw)
+                continue
+            h, _ = lm.attnlib.gqa_forward(
+                p["attn"], lm.apply_norm(x, p["norm1"], cfg), cfg, **kw)
+            x = x + h
+            h, metrics = moelib.moe_forward(
+                p["moe"], lm.apply_norm(x, p["norm2"], cfg), cfg)
+            x = x + h
+            drops.append(round(float(metrics["dropped_frac"])
+                               * prompts.numel() * cfg.top_k))
+    x = lm.apply_norm(x, params["final_norm"], cfg)
+    again = lm.logits_from_hidden(x[:, -1], lm._head(params, cfg))
+    if len(drops) != cfg.n_layers or not torch.equal(again, logits):
+        raise AssertionError(
+            f"{cfg.name}: {len(drops)} MoE layers; the layer-by-layer run's "
+            f"logits differ from the prefill's by "
+            f"{float((again - logits).abs().max())}")
+    return drops
+
+
+def family_card_vs_cpu(arch: str) -> None:
+    """The card against the CPU on ``arch`` at full width and 2 layers,
+    float32: prefill logits, every cache leaf and (MoE) each layer's
+    dropped share."""
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=FAMILY_CHECK_LAYERS, dtype="float32",
+                              attention_impl="pallas")
+    t0 = time.perf_counter()
+    # Drawn on the card (the CPU's generator takes about 2 s a GB), then
+    # copied to the host.
+    card = lm.init_params(torch.Generator(device=DEV).manual_seed(5), cfg,
+                          DEV)
+    cpu = convert.lm_params_from_numpy(
+        {n: p.cpu().numpy() for n, p in card.named_parameters()}, cfg, "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (CHECK_BATCH, CHECK_PROMPT)).astype(np.int32))
+    if cfg.n_experts:   # a tied first row (FAMILY_CHECKS' comment)
+        prompts = torch.cat([torch.zeros_like(prompts[:1]), prompts])
+        for params in (cpu, card):
+            params["embed"].data[0] = 0.0
+    sides = {"cpu": cpu, "card": card}
+    reset_lm_counts()
+    res = {}
+    for side, params in sides.items():
+        logits, caches, _ = lm.prefill(
+            params, {"tokens": prompts.to(params["embed"].device)}, cfg)
+        res[side] = [logits.cpu()] + [c.cpu() for seg in caches.values()
+                                      for c in seg]
+    paths = lm_paths()
+    drops = {side: moe_drops(params, prompts.to(params["embed"].device), cfg,
+                             res[side][0].to(params["embed"].device))
+             for side, params in sides.items()} if cfg.n_experts else {}
+    fields = ["logits"] + [f"{name}.{f}" for name, seg in caches.items()
+                           for f in seg._fields]
+    errs = []
+    for name, a, b in zip(fields, res["cpu"], res["card"], strict=True):
+        err = float((a - b).abs().max())
+        tol = CHECK_LOGIT_TOL if name == "logits" \
+            else FAMILY_CACHE_TOL * float(a.abs().max())
+        errs.append(f"{name} {err:.3g} (tolerance {tol:.3g})")
+        if not bool(torch.isfinite(b).all()) or err > tol:
+            raise AssertionError(f"{arch} {name}: card vs CPU max abs err "
+                                 f"{err} > {tol}")
+    # float32 operands take the CUDA-core bodies, one launch a layer.
+    want = {"wgmma": 0, "f32": 0, "scalar_decay": 0, "per_channel": 0}
+    want["per_channel" if cfg.ssm == "rwkv6" else "f32"] = cfg.n_layers
+    if paths != want:
+        raise AssertionError(f"{arch} float32 card prefill went through "
+                             f"{paths}")
+    if drops:
+        if drops["card"] != drops["cpu"] or not drops["cpu"][0] > 0:
+            raise AssertionError(f"{arch} dropped events by layer: card "
+                                 f"{drops['card']}, CPU {drops['cpu']}")
+        errs.append(f"dropped events by layer {drops['card']} of "
+                    f"{prompts.numel() * cfg.top_k} on both sides")
+    print(f"phase 17: {arch} full width, {FAMILY_CHECK_LAYERS} layers, "
+          f"float32, batch {prompts.shape[0]} x prompt {CHECK_PROMPT}: "
+          f"card == CPU; max abs err {'; '.join(errs)}; logits up to "
+          f"{float(res['cpu'][0].abs().max()):.3g}; bodies {paths}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu, card, sides, params, res, logits, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase17(launches: dict, gpu: str) -> None:
+    family_kernels(gpu)
+    for arch, depth in FAMILIES:
+        serve_family(arch, depth, launches, gpu)
+    for arch in FAMILY_CHECKS:
+        family_card_vs_cpu(arch)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -3633,6 +3959,7 @@ def main() -> None:
     timed_phase("14", lambda: phase14(launches, gpu))
     timed_phase("15", lambda: phase15(launches, gpu))
     timed_phase("16", lambda: phase16(launches, gpu))
+    timed_phase("17", lambda: phase17(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

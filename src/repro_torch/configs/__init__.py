@@ -15,13 +15,15 @@ from repro_torch.configs.base import ModelConfig, count_params  # noqa: F401
 # Ported architectures → config module.
 _ARCH_MODULES = {
     "zamba2-7b": "zamba2_7b",
+    "rwkv6-7b": "rwkv6_7b",
+    "smollm-135m": "smollm_135m",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "gemma-7b": "gemma_7b",
+    "qwen3-8b": "qwen3_8b",
+    "grok-1-314b": "grok_1_314b",
 }
 # Known architectures whose family the port does not run yet.
-_UNPORTED = (
-    "llava-next-mistral-7b", "smollm-135m", "phi3-medium-14b", "gemma-7b",
-    "qwen3-8b", "deepseek-v2-236b", "grok-1-314b", "rwkv6-7b",
-    "whisper-medium",
-)
+_UNPORTED = ("llava-next-mistral-7b", "deepseek-v2-236b", "whisper-medium")
 
 ARCH_NAMES = list(_ARCH_MODULES)
 

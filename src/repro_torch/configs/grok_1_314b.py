@@ -1,0 +1,19 @@
+"""grok-1-314b [moe]: 8 experts top-2. [hf:xai-org/grok-1; unverified]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    n_layers=64,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=32768,
+    vocab_size=131072,
+    head_dim=128,
+    n_experts=8,
+    top_k=2,
+    moe_d_ff=32768,
+    mlp_act="silu",
+)

@@ -134,9 +134,11 @@ def lm_params_from_numpy(arrays: dict[str, np.ndarray], cfg,
 def lm_caches_from_numpy(arrays: dict[str, np.ndarray], cfg, device=None):
     """Decode caches from the JAX ``init_cache``/``prefill`` tree flattened
     to ``{path: array}``: for zamba2 the tuple (Mamba2 cache, shared-block
-    KV cache) as ``0.conv``, ``0.state``, ``1.k``, ``1.v``; otherwise one KV
-    cache per segment (``layers.k``, ``layers.v``).  Conv and K/V leaves
-    take the config's activation dtype, recurrent states stay float32."""
+    KV cache) as ``0.conv``, ``0.state``, ``1.k``, ``1.v``; for RWKV6 one
+    ``SSMCache`` per segment (``layers.conv``, ``layers.state``); otherwise
+    one KV cache per segment (``layers.k``, ``layers.v``).  Conv and K/V
+    leaves take the config's activation dtype, recurrent states stay
+    float32."""
     dt = dtype_of(cfg.dtype)
     if cfg.attn_every:
         t = _tensors(arrays, {"0.conv": dt, "0.state": torch.float32,
@@ -144,6 +146,12 @@ def lm_caches_from_numpy(arrays: dict[str, np.ndarray], cfg, device=None):
         return (SSMCache(conv=t["0.conv"], state=t["0.state"]),
                 KVCache(k=t["1.k"], v=t["1.v"]))
     names = [seg.name for seg in _segments(cfg)]
+    if cfg.ssm == "rwkv6":
+        keys = {f"{n}.conv": dt for n in names}
+        keys.update({f"{n}.state": torch.float32 for n in names})
+        t = _tensors(arrays, keys, device)
+        return {n: SSMCache(conv=t[f"{n}.conv"], state=t[f"{n}.state"])
+                for n in names}
     t = _tensors(arrays, {f"{n}.{f}": dt for n in names for f in "kv"},
                  device)
     return {n: KVCache(k=t[f"{n}.k"], v=t[f"{n}.v"]) for n in names}

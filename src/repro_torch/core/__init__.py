@@ -6,7 +6,7 @@ from repro_torch.core.events import (  # noqa: F401
     EventFrame, PackedWords, empty_frame, make_frame, make_frame_argsort,
     make_frame_segmented, concatenate_frames, pack_words, unpack_words,
     pack_wire16, unpack_wire16, words_required,
-    SPIKES_PER_WORD, WIRE_VALID_BIT,
+    CapacityPolicy, SPIKES_PER_WORD, WIRE_VALID_BIT,
 )
 from repro_torch.core.routing import (  # noqa: F401
     RoutingTables, build_fwd_table, build_rev_table, identity_tables,

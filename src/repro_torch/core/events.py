@@ -13,6 +13,7 @@ three events share one word and an 8-bit timestamp tag (``pack_words``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -303,3 +304,21 @@ def words_required(n_events):
     """Number of layer-2 words needed for ``n_events`` spikes (ceil div
     3); an int or an integer tensor."""
     return -(-n_events // SPIKES_PER_WORD)
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPolicy:
+    """How event-frame capacity is provisioned.
+
+    ``strict`` mirrors hardware (fixed capacity, silent drop + counter);
+    ``provisioned`` sizes capacity from an expected-rate bound so gradient
+    based training sees loss-free traffic.
+    """
+
+    mode: str = "strict"  # "strict" | "provisioned"
+    headroom: float = 2.0
+
+    def capacity_for(self, expected_events: int) -> int:
+        if self.mode == "provisioned":
+            return max(8, int(expected_events * self.headroom))
+        return max(8, int(expected_events))

@@ -57,8 +57,10 @@ def new_param(gen: torch.Generator | None, shape, device, *,
     if fill is not None:
         t = torch.full(shape, fill, dtype=torch.float32, device=device)
     else:
+        # Scaled in place, so that a layer stack's tensor takes its size
+        # in memory once while it is made, not twice.
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * scale
+                        device=device).mul_(scale)
     return nn.Parameter(t, requires_grad=False)
 
 

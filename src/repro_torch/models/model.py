@@ -2,10 +2,12 @@
 
 The port runs the decoder-only stacks: zamba2's hybrid stack (Mamba2
 layers with one shared attention + MLP block applied every ``attn_every``
-layers) and a plain stack of GQA + MLP layers.  Where the JAX package scans
-over a stacked layer axis, the port loops over it in Python; parameters
-and caches keep the stacked layout.  Training, MoE, MLA, RWKV6 and the
-encoder-decoder stack are still to port (ROADMAP.md queue 1 item 10).
+layers), RWKV6's attention-free stack, and stacks of GQA layers with an
+MLP or the MoE layer (a segment of each kind, as the JAX package splits
+them).  Where the JAX package scans over a stacked layer axis, the port
+loops over it in Python; parameters and caches keep the stacked layout.
+Training, MLA and the encoder-decoder stack are still to port (ROADMAP.md
+queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -100,9 +102,9 @@ def _stacked(new_caches: list):
 
 
 def _run_layer(layers: Params, i: int, x, cfg, caches, new, *, mode,
-               positions, cache_index):
+               positions, cache_index, moe: bool = False):
     cache = _layer_cache(caches, i)
-    x, nc, _ = decoder_layer(layers.layer(i), x, cfg, moe=False, mode=mode,
+    x, nc, _ = decoder_layer(layers.layer(i), x, cfg, moe=moe, mode=mode,
                              positions=positions, cache=cache,
                              cache_index=cache_index)
     if mode == "decode" and nc is not cache:  # KV caches are written in place
@@ -155,7 +157,7 @@ def apply_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
         for i in range(seg.n_layers):
             x = _run_layer(params[seg.name], i, x, cfg, seg_caches, new,
                            mode=mode, positions=positions,
-                           cache_index=cache_index)
+                           cache_index=cache_index, moe=seg.moe)
         if mode == "prefill":
             new_caches[seg.name] = _stacked(new)
     if mode == "decode":
@@ -171,7 +173,8 @@ def apply_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Layer-stacked decode caches, zeros: for zamba2 (Mamba2 caches
     [n_layers, ...], shared-block KV caches [groups, ...]); otherwise
-    {segment: KV cache [n_layers, ...]}."""
+    {segment: cache [n_layers, ...]}, RWKV6's ``SSMCache`` or a KV
+    cache."""
     device = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 
@@ -180,12 +183,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
         return attnlib.KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                                v=torch.zeros(shape, dtype=dt, device=device))
 
+    def ssm(one, n):
+        return ssmlib.SSMCache(*(torch.zeros((n, *c.shape), dtype=c.dtype,
+                                             device=device) for c in one))
+
     if cfg.attn_every:
-        one = ssmlib.init_mamba2_cache(cfg, batch, dt, device)
-        mamba = ssmlib.SSMCache(*(torch.zeros((cfg.n_layers, *c.shape),
-                                              dtype=c.dtype, device=device)
-                                  for c in one))
+        mamba = ssm(ssmlib.init_mamba2_cache(cfg, batch, dt, device),
+                    cfg.n_layers)
         return (mamba, kv(cfg.n_layers // cfg.attn_every))
+    if cfg.ssm == "rwkv6":
+        one = ssmlib.init_rwkv6_cache(cfg, batch, dt, device)
+        return {seg.name: ssm(one, seg.n_layers) for seg in _segments(cfg)}
     if cfg.ssm != "none" or cfg.attention == "mla":
         raise NotImplementedError(
             f"{cfg.ssm}/{cfg.attention} caches {NOT_PORTED}")

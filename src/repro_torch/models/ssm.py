@@ -1,13 +1,16 @@
-"""State-space sequence mixer: Mamba2 (SSD).
+"""State-space sequence mixers: Mamba2 (SSD) and RWKV6 (Finch).
 
-Mamba2 reduces to the diagonal-decay linear recurrence of
+Both reduce to the diagonal-decay linear recurrence of
 ``repro_torch.kernels.linear_scan``:
 
-    h_t = exp(-exp(A)·dt_t) h_{t-1} + (dt_t B_t) ⊗ x_t ;  y = C_t·h_t
+    Mamba2:  h_t = exp(-exp(A)·dt_t) h_{t-1} + (dt_t B_t) ⊗ x_t ;  y = C_t·h_t
+             (a scalar decay per head, broadcast over the state dim)
+    RWKV6:   h_t = exp(w_t) ⊙ h_{t-1} + k_t ⊗ v_t ;
+             y_t = r_t · (h_{t-1} + diag(u) k_t ⊗ v_t)
+             (a data-dependent per-channel decay w_t from a low-rank
+             projection, and the bonus term u: the kernel's ``bonus`` mode)
 
-(a scalar decay per head, broadcast over the state dim).  Decode carries
-(conv state, recurrence state): O(1) per token.  RWKV6 is still to port
-(ROADMAP.md queue 1 item 10).
+Decode carries (conv/shift state, recurrence state): O(1) per token.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ from repro_torch.kernels.linear_scan.ref import (linear_scan_chunked,
 from repro_torch.models.layers import Params, dense, new_param, rms_norm
 
 
+W_LORA_RANK = 64
+
+
 class SSMCache(NamedTuple):
-    conv: torch.Tensor    # [B, K-1, d_conv]
-    state: torch.Tensor   # [B, H, state, hd]
+    conv: torch.Tensor    # mamba2: [B, K-1, d_conv]; rwkv6: [B, 2, d] (shifts)
+    state: torch.Tensor   # [B, H, state_or_hd, hd]
 
 
 class Mamba2(Params):
@@ -141,3 +147,143 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype,
                          dtype=dtype, device=device),
         state=torch.zeros((batch, h, st, cfg.ssm_head_dim),
                           dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch)
+# ---------------------------------------------------------------------------
+
+
+class RWKV6TimeMix(Params):
+    def __init__(self, cfg: ModelConfig, gen=None, stack=(), device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.ssm_head_dim
+        for mu in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
+            setattr(self, mu, new_param(None, (*stack, d), device, fill=0.5))
+        self.wr = dense(gen, stack, d, d, device)
+        self.wk = dense(gen, stack, d, d, device)
+        self.wv = dense(gen, stack, d, d, device)
+        self.wg = dense(gen, stack, d, d, device)
+        w_base = torch.linspace(-6.0, -0.5, d, device=device)
+        self.w_base = torch.nn.Parameter(w_base.expand(*stack, d).clone(),
+                                         requires_grad=False)
+        self.w_lora_a = dense(gen, stack, d, W_LORA_RANK, device)
+        self.w_lora_b = dense(gen, stack, W_LORA_RANK, d, device, scale=0.01)
+        self.u = new_param(None, (*stack, d // hd, hd), device, fill=0.0)
+        self.ln_scale = new_param(None, (*stack, d), device, fill=1.0)
+        self.wo = dense(gen, stack, d, d, device)
+
+
+class RWKV6ChannelMix(Params):
+    def __init__(self, cfg: ModelConfig, gen=None, stack=(), device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.mu_k = new_param(None, (*stack, d), device, fill=0.5)
+        self.mu_r = new_param(None, (*stack, d), device, fill=0.5)
+        self.wk = dense(gen, stack, d, cfg.d_ff, device)
+        self.wv = dense(gen, stack, cfg.d_ff, d, device)
+        self.wr = dense(gen, stack, d, d, device)
+
+
+def _token_shift(x: torch.Tensor, shift_state=None):
+    """Returns (x_prev, new_shift_state). x: [B,S,D]."""
+    if shift_state is not None:
+        prev = torch.cat([shift_state.to(x.dtype), x[:, :-1]], dim=1)
+    else:
+        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return prev, x[:, x.shape[1] - 1:]
+
+
+def _mix(x, prev, mu):
+    # The JAX package's order in the activation dtype: x + (prev - x)·mu,
+    # not a lerp and not a float32 upcast.
+    return x + (prev - x) * mu.to(x.dtype)
+
+
+def rwkv6_time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
+                   mode: str = "train", cache: SSMCache | None = None):
+    """Returns (out [B,S,D], new_cache | None)."""
+    b, s, d = x.shape
+    hd = cfg.ssm_head_dim
+    h = d // hd
+    dt_ = x.dtype
+
+    shift_state = cache.conv[:, :1] if cache is not None \
+        and mode == "decode" else None
+    prev, new_shift = _token_shift(x, shift_state)
+
+    r = _mix(x, prev, params["mu_r"]) @ params["wr"].to(dt_)
+    k = _mix(x, prev, params["mu_k"]) @ params["wk"].to(dt_)
+    v = _mix(x, prev, params["mu_v"]) @ params["wv"].to(dt_)
+    g = F.silu(_mix(x, prev, params["mu_g"]) @ params["wg"].to(dt_))
+
+    # Data-dependent decay (Finch): w = -exp(base + tanh(x_w A) B) ≤ 0.
+    xw = _mix(x, prev, params["mu_w"])
+    w_dyn = torch.tanh(xw @ params["w_lora_a"].to(dt_)) \
+        @ params["w_lora_b"].to(dt_)
+    w_log = -torch.exp(params["w_base"].float() + w_dyn.float())
+
+    def heads(t):
+        return t.reshape(b, s, h, hd).transpose(1, 2)
+
+    rh, kh, vh = heads(r), heads(k), heads(v)
+    # The decay rounds through the activation dtype, as the JAX package's
+    # ``heads(w_log.astype(dt_)).astype(float32)`` does.
+    wh = heads(w_log.to(dt_)).float()
+    u = params["u"]
+
+    if mode == "decode" and cache is not None:
+        state, y = linear_scan_decode_ref(
+            cache.state.float(), rh[:, :, 0].float(), kh[:, :, 0].float(),
+            vh[:, :, 0].float(), wh[:, :, 0], u, mode="bonus")
+        y = y[:, :, None]
+        new_cache = SSMCache(conv=new_shift.to(cache.conv.dtype),
+                             state=state.to(cache.state.dtype))
+    else:
+        if cfg.attention_impl == "pallas":
+            y = linear_scan(rh, kh, vh, wh.to(dt_), u, mode="bonus")
+        else:
+            y = linear_scan_chunked(rh, kh, vh, wh, u,
+                                    mode="bonus").to(dt_)
+        new_cache = None
+        if mode == "prefill":
+            # The closed form h = Σ_s e^{Σ_{r>s} w_r} k_s ⊗ v_s over a
+            # per-channel cumsum, as the JAX package computes it.
+            wcum = torch.cumsum(wh, dim=2)
+            factor = torch.exp(wcum[:, :, -1:] - wcum)
+            kw = kh.float() * factor
+            state = torch.einsum("bhsk,bhsv->bhkv", kw, vh.float())
+            new_cache = SSMCache(conv=new_shift.to(dt_), state=state)
+
+    y = y.transpose(1, 2).reshape(b, s, d)
+    # Per-head group norm (RWKV's ln_x, population variance), then the
+    # output gate.
+    y32 = y.float().reshape(b, s, h, hd)
+    mean = y32.mean(-1, keepdim=True)
+    var = y32.var(-1, keepdim=True, correction=0)
+    y = ((y32 - mean) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
+    y = (y * params["ln_scale"]).to(dt_) * g
+    return y @ params["wo"].to(dt_), new_cache
+
+
+def rwkv6_channel_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
+                      shift_state=None):
+    """Returns (out [B,S,D], new shift state [B,1,D])."""
+    dt_ = x.dtype
+    prev, new_shift = _token_shift(x, shift_state)
+    xk = _mix(x, prev, params["mu_k"])
+    xr = _mix(x, prev, params["mu_r"])
+    k = torch.square(torch.relu(xk @ params["wk"].to(dt_)))
+    v = k @ params["wv"].to(dt_)
+    r = torch.sigmoid(xr @ params["wr"].to(dt_))
+    return r * v, new_shift
+
+
+def init_rwkv6_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> SSMCache:
+    d, hd = cfg.d_model, cfg.ssm_head_dim
+    # The conv slot holds both shift states, time mix then channel mix.
+    return SSMCache(conv=torch.zeros((batch, 2, d), dtype=dtype,
+                                     device=device),
+                    state=torch.zeros((batch, d // hd, hd, hd),
+                                      dtype=torch.float32, device=device))

@@ -108,7 +108,7 @@ def test_config_copy_matches_jax():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("rwkv6-7b")
+        get_config("deepseek-v2-236b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
