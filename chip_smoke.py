@@ -220,7 +220,8 @@ from repro_torch.kernels.lif_step import ops as lif_ops  # noqa: E402
 from repro_torch.kernels.lif_step.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
-    linear_scan_chunked, linear_scan_scalar_decay_ref)
+    linear_scan_channel_decay_ref, linear_scan_chunked,
+    linear_scan_scalar_decay_ref)
 from repro_torch.kernels.spike_router import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
@@ -266,6 +267,12 @@ KERNEL_SOURCES = {
     "linear_scan": ("src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
                     "src/repro/kernels/linear_scan/linear_scan.py:106"),
 }
+# linear_scan's bodies and their sources (the kernels line notes both).
+SCAN_SOURCES = {
+    "scalar_decay": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+    "channel_decay":
+        "src/repro_torch/kernels/linear_scan/csrc/channel_decay.cu",
+    "per_channel": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"}
 # The LM main path (phase 5) and the card-against-CPU check (phase 6).
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT, CHECK_NEW = 7, 2, 64, 4
@@ -1106,6 +1113,16 @@ def rwkv_inputs(gen, b, h, t, kd, dtype, views=False):
     return q, k, v, w, u
 
 
+def strong_inputs(gen, b, h, t, kd, dtype):
+    """Operands with decays uniform down to e^-10 a step (the cumsum
+    reaches about -320 within a chunk), k halved, and a bonus u."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    q, k, v = rnd(b, h, t, kd), 0.5 * rnd(b, h, t, kd), rnd(b, h, t, kd)
+    w = -10 * torch.rand((b, h, t, kd), generator=gen, device=DEV)
+    return (*(a.to(dtype) for a in (q, k, v, w)), 0.5 * rnd(h, kd))
+
+
 def one_body(fn, counts: dict, body: str):
     """Runs ``fn`` and checks that it launched once, through ``body``."""
     before = dict(counts)
@@ -1129,8 +1146,10 @@ BF16_REASON = ("bf16 output, one ulp apart where the two f32 results round "
 # bf16 output tolerance above.
 P_REASON = "P rounded to bf16 (2^-8·max|v|) and one bf16 ulp of output"
 FLIP_SHARE = 1e-3
-SCAN_REASON = ("bf16 output one ulp apart, and __expf and float32 sums and "
-               "cumsums in another order (1e-3 of the output's scale)")
+SCAN_TC_REASON = ("bf16 output one ulp apart, TF32 products, __expf and sums "
+                  "in another order (1e-3 of the output's scale)")
+SCAN_F32_REASON = ("__expf and float32 sums and cumsums in another order "
+                   "(1e-3 of the output's scale)")
 
 
 def flash_check(name: str, q, k, v, causal: bool, body: str,
@@ -1170,7 +1189,7 @@ def flash_check(name: str, q, k, v, causal: bool, body: str,
 def scan_check(name: str, args, mode: str, body: str, tol,
                phase: str = "2") -> float:
     """One linear-scan launch, which must take ``body``, against
-    linear_scan_chunked (and the scalar-decay twin for that body), within
+    linear_scan_chunked (and the tensor-core bodies' twins), within
     ``tol`` = (rel, abs as a share of max|ref|, reason).  Returns the max
     abs error."""
     rel, abs_rel, reason = tol
@@ -1182,6 +1201,9 @@ def scan_check(name: str, args, mode: str, body: str, tol,
     if body == "scalar_decay":
         wants["linear_scan_scalar_decay_ref"] = \
             linear_scan_scalar_decay_ref(*args[:4])
+    elif body == "channel_decay":
+        wants["linear_scan_channel_decay_ref"] = \
+            linear_scan_channel_decay_ref(*args, mode=mode)
     torch.cuda.synchronize()
     err = 0.0
     for ref_name, want in wants.items():
@@ -1235,8 +1257,7 @@ def phase2_lm(results: dict) -> None:
     del main, q, k, v, q32, k32, v32
 
     # Linear scan.  (case, make inputs, mode, body, tolerance)
-    tc_reason = ("bf16 output one ulp apart, TF32 products, __expf and sums "
-                 "in another order (1e-3 of the output's scale)")
+    tc_reason = SCAN_TC_REASON
 
     def dense_w(args):
         q, k, v, w, u = args
@@ -1249,17 +1270,27 @@ def phase2_lm(results: dict) -> None:
         ("ragged t1000: mamba2 b2 h16 bf16 inclusive",
          lambda: mamba_inputs(gen, 2, 16, 1000, 64, 64, bf16), "inclusive",
          "scalar_decay", (BF16_ULP, 1e-3, tc_reason)),
-        ("per-channel body on mamba2's operands, w dense: b2 h16 t1000 bf16",
-         lambda: dense_w(mamba_inputs(gen, 2, 16, 1000, 64, 64, bf16)),
-         "inclusive", "per_channel", (BF16_ULP, 1e-3, SCAN_REASON)),
+        ("channel-decay body on mamba2's operands, w dense: b2 h16 t1000 "
+         "bf16", lambda: dense_w(mamba_inputs(gen, 2, 16, 1000, 64, 64, bf16)),
+         "inclusive", "channel_decay", (BF16_ULP, 1e-3, tc_reason)),
         ("bonus: rwkv6 b2 h64 t1024 k64 v64 bf16",
          lambda: rwkv_inputs(gen, 2, 64, 1024, 64, bf16), "bonus",
-         "per_channel", (BF16_ULP, 1e-3, SCAN_REASON)),
+         "channel_decay", (BF16_ULP, 1e-3, tc_reason)),
+        ("ragged t1000 bonus: rwkv6 b2 h16 k64 v64 bf16 views",
+         lambda: rwkv_inputs(gen, 2, 16, 1000, 64, bf16, views=True),
+         "bonus", "channel_decay", (BF16_ULP, 1e-3, tc_reason)),
+        ("strong decays up to e^-10 per step: b1 h8 t512 k64 v64 bf16 bonus",
+         lambda: strong_inputs(gen, 1, 8, 512, 64, bf16), "bonus",
+         "channel_decay", (BF16_ULP, 1e-3, tc_reason)),
+        ("per-channel body, f32 bonus: rwkv6 b2 h64 t1024 k64 v64",
+         lambda: rwkv_inputs(gen, 2, 64, 1024, 64, f32), "bonus",
+         "per_channel", (0.0, 1e-3, SCAN_F32_REASON)),
+        ("per-channel body on bf16 operands, K = V = 40: rwkv6 b2 h16 t1000 "
+         "bonus", lambda: rwkv_inputs(gen, 2, 16, 1000, 40, bf16), "bonus",
+         "per_channel",
+         (BF16_ULP, 1e-3, "bf16 output one ulp apart; " + SCAN_F32_REASON)),
         ("strong decays up to e^-10 per step: b1 h8 t512 f32 inclusive",
-         lambda: (*(torch.randn((1, 8, 512, 64), generator=gen, device=DEV)
-                    for _ in range(3)),
-                  -10 * torch.rand((1, 8, 512, 64), generator=gen,
-                                   device=DEV), None),
+         lambda: strong_inputs(gen, 1, 8, 512, 64, f32)[:4] + (None,),
          "inclusive", "per_channel",
          (0.0, 1e-3, "__expf and float32 cumsums in another order at "
           "|b| ~ 300 (1e-3 of the output's scale)")),
@@ -1280,7 +1311,7 @@ def phase2_lm(results: dict) -> None:
         plain_ms=eager_ms(lambda: linear_scan_scalar_decay_ref(q, k, v, w),
                           2, 1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        other=("per-channel body (w dense)", graph_ms(
+        other=("channel-decay body (w dense)", graph_ms(
             lambda: scan_ops.linear_scan(q, k, v, w_dense), 2, 1)))
     del main, q, k, v, w, w_dense
     for name in ("flash_attention", "linear_scan"):
@@ -1631,6 +1662,14 @@ def reset_lm_counts() -> None:
     reset_counts(scan_ops.linear_scan)
 
 
+def count_scan_bodies(launches: dict) -> None:
+    """Adds the linear scan's launches by body since the last reset to
+    ``launches`` (as "linear_scan <body>"), for the kernels line."""
+    for body, n in scan_ops.linear_scan.launches_by_path.items():
+        key = f"linear_scan {body}"
+        launches[key] = launches.get(key, 0) + n
+
+
 def phase5(launches: dict, gpu: str) -> None:
     cfg = dataclasses.replace(get_config("zamba2-7b"), attention_impl="pallas")
     t0 = time.perf_counter()
@@ -1662,11 +1701,13 @@ def phase5(launches: dict, gpu: str) -> None:
     # Every prefill launch goes through the tensor-core bodies.
     paths = lm_paths()
     want_paths = {"wgmma": 2 * groups, "f32": 0,
-                  "scalar_decay": 2 * cfg.n_layers, "per_channel": 0}
+                  "scalar_decay": 2 * cfg.n_layers, "channel_decay": 0,
+                  "per_channel": 0}
     if paths != want_paths:
         raise AssertionError(f"zamba2-7b generate: bodies {paths}, expected "
                              f"{want_paths}")
     launches.update(counts)
+    count_scan_bodies(launches)
     if tokens.shape != (LM_BATCH, LM_NEW) or tokens.dtype != torch.int32 \
             or not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"bad tokens {tokens.dtype}{tuple(tokens.shape)}")
@@ -1706,8 +1747,8 @@ def phase5(launches: dict, gpu: str) -> None:
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} finite="
                              f"{bool(torch.isfinite(logits).all())}")
-    if lm_paths() != {"wgmma": groups, "f32": 0,
-                      "scalar_decay": cfg.n_layers, "per_channel": 0}:
+    if lm_paths() != {"wgmma": groups, "f32": 0, "scalar_decay": cfg.n_layers,
+                      "channel_decay": 0, "per_channel": 0}:
         raise AssertionError(f"one prefill launched {lm_paths()}")
     del params, logits, out, tokens, dec
     gc.collect()
@@ -1760,8 +1801,8 @@ def phase6() -> None:
     # float32 operands take the CUDA-core bodies: TF32 products would break
     # the 1e-3 logit tolerance.
     paths = lm_paths()
-    if paths["wgmma"] or paths["scalar_decay"] or not (
-            paths["f32"] and paths["per_channel"]):
+    if paths["wgmma"] or paths["scalar_decay"] or paths["channel_decay"] \
+            or not (paths["f32"] and paths["per_channel"]):
         raise AssertionError(f"phase 6 float32 run went through {paths}")
     print(f"phase 6: zamba2-7b full width, {CHECK_LAYERS} layers, float32, "
           f"batch {CHECK_BATCH} x prompt {CHECK_PROMPT}: card == CPU; "
@@ -3680,17 +3721,27 @@ def family_kernels(gpu: str) -> None:
     bf16 = torch.bfloat16
     args = rwkv_inputs(gen, 4, 64, 2048, 64, bf16, views=True)
     name = "rwkv6-7b main path: b4 h64 t2048 k64 v64 bf16 bonus"
-    err = scan_check(name, args, "bonus", "per_channel",
-                     (BF16_ULP, 1e-3, SCAN_REASON), "17")
+    err = scan_check(name, args, "bonus", "channel_decay",
+                     (BF16_ULP, 1e-3, SCAN_TC_REASON), "17")
     b_ms, b_by = scan_bound(*args)
-    chunk = scan_ops.chunk_for(args[0].shape[2])
+    # The body takes 64 value columns a block where they divide V (the
+    # launch's registers are in the build's ptxas line).
+    per_sm, smem = scan_ops.channel_decay_occupancy(args[0].shape[-1],
+                                                    args[2].shape[-1])
+    grid = args[0].shape[0] * args[0].shape[1] * (args[2].shape[-1] // 64)
     ms = graph_ms(lambda: scan_ops.linear_scan(*args, mode="bonus"), 10, 5)
+    chunk = scan_ops.chunk_for(args[0].shape[2])
     plain = eager_ms(lambda: linear_scan_chunked(*args, mode="bonus",
                                                  chunk=chunk), 2, 1)
-    print(f"phase 17: linear_scan {name} (per_channel): kernel {ms:.4f} ms "
-          f"(graph replay), plain {plain:.4f} ms (linear_scan_chunked), "
-          f"library none, bound {b_ms:.4f} ms ({b_by}), max abs err "
-          f"{err:.3g} [{gpu}]", flush=True)
+    twin = eager_ms(lambda: linear_scan_channel_decay_ref(*args,
+                                                          mode="bonus"), 2, 1)
+    print(f"phase 17: linear_scan {name} (channel_decay, 64-column V "
+          f"slice: {smem} B shared memory, {per_sm} blocks an SM, {grid} "
+          f"blocks = {grid / (per_sm * SMS):.2f} waves): kernel {ms:.4f} ms "
+          f"(graph replay), plain {plain:.4f} ms (linear_scan_chunked), twin "
+          f"{twin:.4f} ms (linear_scan_channel_decay_ref), library none, "
+          f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3g} [{gpu}]",
+          flush=True)
     del args
     for arch in FLASH_FAMILIES:
         cfg = get_config(arch)
@@ -3718,11 +3769,11 @@ def family_kernels(gpu: str) -> None:
 
 def family_bodies(cfg) -> dict:
     """Launches by body of one prefill: RWKV6 layers scan through the
-    per-channel body (bonus mode), attention layers through wgmma."""
+    channel-decay body (bonus mode), attention layers through wgmma."""
     n = cfg.n_layers
     rwkv = cfg.ssm == "rwkv6"
     return {"wgmma": 0 if rwkv else n, "f32": 0, "scalar_decay": 0,
-            "per_channel": n if rwkv else 0}
+            "channel_decay": n if rwkv else 0, "per_channel": 0}
 
 
 def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
@@ -3758,6 +3809,7 @@ def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
                              f"{want}")
     for k, n in counts.items():
         launches[k] += n
+    count_scan_bodies(launches)
     if tokens.shape != (LM_BATCH, LM_NEW) or tokens.dtype != torch.int32 \
             or not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"{arch}: bad tokens {tokens.dtype}"
@@ -3785,7 +3837,8 @@ def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
 
     reset_lm_counts()
     line = device_breakdown(one_prefill, per=1, unit="prefill",
-                            ours=("attn_wgmma_kernel", "scan_kernel"))
+                            ours=("attn_wgmma_kernel",
+                                  "scan_channel_decay_kernel"))
     print(f"phase 17: {arch} prefill: {line} [{gpu}]", flush=True)
     if lm_paths() != family_bodies(cfg):
         raise AssertionError(f"{arch}: one prefill launched {lm_paths()}")
@@ -3889,7 +3942,8 @@ def family_card_vs_cpu(arch: str) -> None:
             raise AssertionError(f"{arch} {name}: card vs CPU max abs err "
                                  f"{err} > {tol}")
     # float32 operands take the CUDA-core bodies, one launch a layer.
-    want = {"wgmma": 0, "f32": 0, "scalar_decay": 0, "per_channel": 0}
+    want = {"wgmma": 0, "f32": 0, "scalar_decay": 0, "channel_decay": 0,
+            "per_channel": 0}
     want["per_channel" if cfg.ssm == "rwkv6" else "f32"] = cfg.n_layers
     if paths != want:
         raise AssertionError(f"{arch} float32 card prefill went through "
@@ -3971,6 +4025,16 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
         if not launches[k]:
             raise AssertionError(f"{k} never launched on the main path")
+    # The scan's main-path launches by body (phases 5 and 17); its two
+    # tensor-core bodies both serve a main path.
+    bodies = {b: launches.get(f"linear_scan {b}", 0)
+              for b in scan_ops.linear_scan.launches_by_path}
+    next(e for e in kernels if e["name"] == "linear_scan").update(
+        bodies=bodies, sources=SCAN_SOURCES)
+    for body in ("scalar_decay", "channel_decay"):
+        if not bodies[body]:
+            raise AssertionError(f"linear_scan's {body} body never launched "
+                                 f"on the main path")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

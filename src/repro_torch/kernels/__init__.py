@@ -68,22 +68,33 @@ def launcher(stem: str, fn: str, argtypes: tuple):
 ROW_ALIGN = 16                   # bytes: the TMA and cp.async granule
 
 
+def _row_layout_fault(t: torch.Tensor) -> str | None:
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        return f"needs its last dim contiguous, got strides {t.stride()}"
+    if any((stride * t.element_size()) % ROW_ALIGN
+           for size, stride in zip(t.shape[:-1], t.stride()[:-1])
+           if size > 1):
+        return (f"needs strides spanning multiples of {ROW_ALIGN} bytes, "
+                f"got {t.stride()}")
+    if t.data_ptr() % ROW_ALIGN:
+        return f"needs a {ROW_ALIGN}-byte aligned base"
+    return None
+
+
 def check_row_layout(t: torch.Tensor, name: str) -> None:
     """The tensor-core bodies copy rows in 16-byte pieces (TMA, cp.async):
     ``t``'s last dim must be contiguous, every other stride of a dim longer
     than 1 must span a multiple of 16 bytes (0 included), and the base must
     be 16-byte aligned.  Raises otherwise; nothing is copied to make a
     tensor fit."""
-    if t.stride(-1) != 1 and t.shape[-1] > 1:
-        raise ValueError(f"{name} needs its last dim contiguous, got strides "
-                         f"{t.stride()}")
-    if any((stride * t.element_size()) % ROW_ALIGN
-           for size, stride in zip(t.shape[:-1], t.stride()[:-1])
-           if size > 1):
-        raise ValueError(f"{name} needs strides spanning multiples of "
-                         f"{ROW_ALIGN} bytes, got {t.stride()}")
-    if t.data_ptr() % ROW_ALIGN:
-        raise ValueError(f"{name} needs a {ROW_ALIGN}-byte aligned base")
+    fault = _row_layout_fault(t)
+    if fault:
+        raise ValueError(f"{name} {fault}")
+
+
+def row_layout_ok(t: torch.Tensor) -> bool:
+    """``check_row_layout``'s rule as a test, for a dispatch by layout."""
+    return _row_layout_fault(t) is None
 
 
 def check(err: int, what: str) -> None:

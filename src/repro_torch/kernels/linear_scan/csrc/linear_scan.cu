@@ -1,8 +1,9 @@
 // linear_scan: chunked diagonal-decay linear recurrence (the Mamba2 and
-// RWKV6 engine), in `inclusive` and `bonus` modes.  Two bodies, picked by
-// the wrapper (ops.py): the scalar-decay body (scan_scalar_decay_kernel,
-// below) for Mamba2's decay shared by all K channels, and the per-channel
-// body (scan_kernel) for every other call.
+// RWKV6 engine), in `inclusive` and `bonus` modes.  Three bodies, picked
+// by the wrapper (ops.py): the scalar-decay body (scan_scalar_decay_kernel,
+// below) for Mamba2's decay shared by all K channels, the channel-decay
+// body (channel_decay.cu) for other bf16 calls, and the per-channel body
+// (scan_kernel) for every other call.
 //
 // Replaces the TPU kernel linear_scan_fwd (_scan_kernel) of
 // src/repro/kernels/linear_scan/linear_scan.py.  Per (batch, head), with
@@ -45,6 +46,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "scan_mma.cuh"
 
 namespace linear_scan {
 
@@ -261,60 +264,6 @@ using linear_scan::load;
 
 constexpr int kC = 64;              // steps per chunk
 constexpr int kThreads = 128;       // four warps of 16 rows
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// A bf16 widened to f32: exact in TF32, so no rounding.
-__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&x)) << 16;
-}
 
 // Rows of the q, k (halves), v (halves) and h (floats) tiles, padded so
 // that ldmatrix and the fragment loads hit distinct banks.

@@ -155,3 +155,104 @@ def linear_scan_scalar_decay_ref(q, k, v, w, *, chunk: int = 64):
             + (kc * torch.exp(b_last - b)[..., None]).transpose(-1, -2) @ vc
     y = torch.cat(ys, dim=2)[:, :, :t]
     return y.to(orig_dtype)
+
+
+def linear_scan_channel_decay_ref(q, k, v, w, u=None, *,
+                                  mode: str = "inclusive", chunk: int = 64,
+                                  sub: int = 16):
+    """The sub-chunk factorisation of the per-channel chunk form, in both
+    modes: the plain twin of the kernel's channel-decay body, in float32.
+
+    Each chunk of ``chunk`` steps is cut into sub-chunks of ``sub`` steps.
+    Cumsums are taken within a sub-chunk (bl, and β = bl or bl − w); r_i
+    is the cumsum of w at the end of sub-chunk i − 1 (r_0 = 0), a sum of
+    sub-chunk totals.  For s in sub-chunk j < i and t in sub-chunk i the
+    intra-chunk matrix factors at r_{j+1}:
+
+        A[t, s] = (q_t ⊙ e^{β_t − r_{j+1}}) · (k_s ⊙ e^{r_{j+1} − b_s}),
+
+    both exponents ≤ 0 (a factor that underflows stands for a smaller true
+    term).  A diagonal block factors its lower-left quadrant the same way
+    at its midpoint and keeps the exact Σ_k q k e^{β_t − b_s} on its two
+    diagonal quadrants (s ≤ t, or s < t in ``bonus`` mode, where the
+    diagonal t = s holds q·u·k).  Then y = (q ⊙ e^{β}) · h + A · V and
+    h ← e^{b_C} ⊙ h + (k ⊙ e^{b_C − b})ᵀ · V, with k ⊙ e^{b_C − b} taken
+    as the off-diagonal k factor times e^{b_C − r_{j+1}}.  The same
+    function as ``linear_scan_chunked``.  Returns y in v's dtype.
+    """
+    if chunk % sub or sub % 2:
+        raise ValueError(f"sub ({sub}) must be even and divide chunk "
+                         f"({chunk})")
+    orig_dtype = v.dtype
+    q, k, v, w = (a.float() for a in (q, k, v, w))
+    batch, heads, t, kdim = q.shape
+    vdim = v.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        q, k, v, w = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v, w))
+    strict = mode == "bonus"
+    u = (torch.zeros((heads, kdim), device=q.device) if u is None
+         else u.float())
+    ns, half = chunk // sub, sub // 2
+    idx = torch.arange(half, device=q.device)
+    quad_mask = (idx[:, None] > idx[None, :]) if strict \
+        else (idx[:, None] >= idx[None, :])
+    eye = torch.eye(half, dtype=torch.bool, device=q.device)
+
+    def exact(qr, betar, kr, br):
+        """Σ_k q k e^{β_t − b_s} over a diagonal quadrant, masked; the
+        bonus diagonal holds q·u·k."""
+        expo = betar[:, :, :, None, :] - br[:, :, None, :, :]
+        a = (qr[:, :, :, None, :] * kr[:, :, None, :, :]
+             * torch.exp(torch.clamp(expo, max=0.0))).sum(-1)
+        a = torch.where(quad_mask, a, 0.0)
+        if strict:
+            diag = (qr * u[None, :, None, :] * kr).sum(-1)
+            a = a + torch.where(eye, diag[..., None], 0.0)
+        return a
+
+    h = torch.zeros((batch, heads, kdim, vdim), device=q.device)
+    ys = []
+    for c0 in range(0, t + pad, chunk):
+        qc, kc, vc, wc = (a[:, :, c0:c0 + chunk] for a in (q, k, v, w))
+        ws = wc.reshape(batch, heads, ns, sub, kdim)
+        bl = torch.cumsum(ws, dim=3)                  # within a sub-chunk
+        betal = bl - ws if strict else bl
+        tot = bl[:, :, :, -1]                         # [B, H, ns, K]
+
+        def decay(a, b):
+            """e^{r_a − r_b}, a ≥ b: the decay over sub-chunks b .. a−1."""
+            return torch.exp(tot[:, :, b:a].sum(2))
+
+        sl = [slice(i * sub, (i + 1) * sub) for i in range(ns)]
+        # k ⊙ e^{r_{j+1} − b_s}: sub-chunk j's k factor.
+        kj = [kc[:, :, sl[j]] * torch.exp(tot[:, :, j, None] - bl[:, :, j])
+              for j in range(ns)]
+        a = torch.zeros((batch, heads, chunk, chunk), device=q.device)
+        y = torch.empty((batch, heads, chunk, vdim), device=q.device)
+        for i in range(ns):
+            qi, ki = qc[:, :, sl[i]], kc[:, :, sl[i]]
+            bi, betai = bl[:, :, i], betal[:, :, i]
+            qprime = qi * torch.exp(betai)            # q ⊙ e^{β_t − r_i}
+            y[:, :, sl[i]] = (qprime * decay(i, 0)[:, :, None]) @ h
+            for j in range(i):
+                a[:, :, sl[i], sl[j]] = \
+                    (qprime * decay(i, j + 1)[:, :, None]) \
+                    @ kj[j].transpose(-1, -2)
+            top, bot = slice(0, half), slice(half, sub)
+            mid = bi[:, :, half - 1:half]
+            qa = qi[:, :, bot] * torch.exp(betai[:, :, bot] - mid)
+            kb = ki[:, :, top] * torch.exp(mid - bi[:, :, top])
+            blk = torch.zeros((batch, heads, sub, sub), device=q.device)
+            blk[:, :, bot, top] = qa @ kb.transpose(-1, -2)
+            for part in (top, bot):
+                blk[:, :, part, part] = exact(qi[:, :, part],
+                                              betai[:, :, part],
+                                              ki[:, :, part], bi[:, :, part])
+            a[:, :, sl[i], sl[i]] = blk
+        ys.append(y + a @ vc)
+        kcarry = torch.cat([kj[j] * decay(ns, j + 1)[:, :, None]
+                            for j in range(ns)], dim=2)
+        h = decay(ns, 0)[..., None] * h + kcarry.transpose(-1, -2) @ vc
+    y = torch.cat(ys, dim=2)[:, :, :t]
+    return y.to(orig_dtype)

@@ -272,33 +272,100 @@ def test_scalar_decay_ref_matches_jax(shape):
     assert err <= chunked_err + TOL / 10, (err, chunked_err)
 
 
+# (batch, heads, T, K, V, decays): T of 1, one past a sub-chunk (17), one
+# chunk, several and ragged; K, V of 16, 64 and 128, and K = 48 with V of
+# 32 and 96, whose blocks take 16 value columns each.  "rwkv": RWKV6's
+# per-channel decays w = -exp(base + 0.5·noise), base from -6 to -0.5
+# across channels; "strong": w uniform down to -10 a step, where the
+# sub-chunk factors e^{r - b} underflow.
+CHANNEL_CASES = [(1, 2, 1, 16, 16, "rwkv"), (1, 2, 17, 16, 16, "strong"),
+                 (1, 2, 17, 64, 64, "rwkv"), (2, 2, 64, 64, 64, "strong"),
+                 (1, 2, 200, 128, 128, "rwkv"), (1, 1, 200, 64, 16, "strong"),
+                 (1, 1, 1000, 64, 64, "rwkv"), (1, 1, 1000, 16, 128, "strong"),
+                 (1, 1, 1000, 128, 64, "strong"), (1, 2, 130, 48, 32, "rwkv"),
+                 (1, 1, 200, 48, 96, "strong")]
+
+
+def _channel_inputs(rng, b, h, t, kd, vd, decays):
+    q, k, v, w, u = _scan_inputs(rng, b, h, t, kd, vd, decay=10.0)
+    if decays == "rwkv":
+        base = np.linspace(-6.0, -0.5, h * kd).reshape(h, kd)
+        noise = rng.standard_normal((b, h, t, kd))
+        w = -np.exp(base[None, :, None, :] + 0.5 * noise).astype(np.float32)
+    return q, k, v, w, u
+
+
+@pytest.mark.parametrize("mode", ["inclusive", "bonus"])
+@pytest.mark.parametrize("case", CHANNEL_CASES)
+def test_channel_decay_ref_matches_jax(case, mode):
+    """The channel-decay twin (sub-chunks of 16, the intra-chunk matrix
+    factored at sub-chunk boundaries, exact diagonal quadrants) against the
+    JAX package's sequential recurrence and its chunked form at the
+    kernel's chunk: the same function in float32, within 1e-5 of the
+    output's scale (sums in another order).  With decays down to -10 a
+    step the factors e^{r - b} underflow to 0 where the true terms are
+    smaller still, and the output stays finite and within tolerance."""
+    rng = np.random.default_rng(sum(case[:5]) + len(case[5]))
+    q, k, v, w, u = _channel_inputs(rng, *case)
+    u = u if mode == "bonus" else None
+    tin = [None if a is None else torch.from_numpy(a) for a in (q, k, v, w, u)]
+    jin = [None if a is None else jnp.asarray(a) for a in (q, k, v, w, u)]
+    got = tscan_ref.linear_scan_channel_decay_ref(*tin, mode=mode)
+    assert got.dtype == torch.float32 and got.shape == v.shape
+    _close("vs jax sequential ref", got,
+           jscan_ref.linear_scan_ref(*jin, mode=mode), rel=True)
+    _close("vs jax chunked", got,
+           jscan_ref.linear_scan_chunked(*jin, mode=mode,
+                                         chunk=tscan.SCALAR_CHUNK), rel=True)
+
+
 def test_linear_scan_body_dispatch():
     """The wrapper's rule: the scalar-decay body takes bf16 q, k, v, a w
     constant over K by construction (stride 0), inclusive mode and K, V
-    multiples of 16 (K up to 128); anything else takes the per-channel
-    body.  Its copy rule (``check_row_layout``, which the flash test
-    drives to each of its errors) takes Mamba2's operands."""
+    multiples of 16 (K up to 128); the channel-decay body the other bf16
+    calls with K, V multiples of 16 (K up to 128), in both modes, when
+    q, k, v and w (f32 or bf16) are on the 16-byte row rule; anything else
+    takes the per-channel body.  Its copy rule (``check_row_layout``, which
+    the flash test drives to each of its errors) takes Mamba2's operands
+    and RWKV6's [b, t, h, k] views."""
     bf = torch.bfloat16
     b, h, t, kd, vd = 1, 2, 8, 64, 32
 
-    def args(dtype=bf, kd=kd, vd=vd, w_stride0=True):
+    def args(dtype=bf, kd=kd, vd=vd, w_stride0=True, w_dtype=torch.float32):
         q = torch.zeros((b, 1, t, kd), dtype=dtype).expand(b, h, t, kd)
         k = torch.zeros((b, h, t, kd), dtype=dtype)
         v = torch.zeros((b, h, t, vd), dtype=dtype)
-        w = torch.zeros((b, h, t, 1))
+        w = torch.zeros((b, h, t, 1), dtype=w_dtype)
         w = w.expand(b, h, t, kd) if w_stride0 else w.repeat(1, 1, 1, kd)
         return q, k, v, w
 
     assert tscan.body_for(*args()) == "scalar_decay"
     assert tscan.body_for(*args(), mode="bonus") == "per_channel"
     assert tscan.body_for(*args(dtype=torch.float32)) == "per_channel"
-    assert tscan.body_for(*args(w_stride0=False)) == "per_channel"
-    assert tscan.body_for(*args(kd=40)) == "per_channel"
-    assert tscan.body_for(*args(vd=24)) == "per_channel"
-    assert tscan.body_for(*args(kd=144)) == "per_channel"
+    for mode in ("inclusive", "bonus"):
+        for w_dtype in (torch.float32, bf):
+            assert tscan.body_for(*args(w_stride0=False, w_dtype=w_dtype),
+                                  mode=mode) == "channel_decay"
+        dense = dict(w_stride0=False)
+        assert tscan.body_for(*args(dtype=torch.float32, **dense),
+                              mode=mode) == "per_channel"
+        for bad in (dict(kd=40), dict(kd=144), dict(vd=24)):
+            assert tscan.body_for(*args(**bad, **dense),
+                                  mode=mode) == "per_channel"
+            assert tscan.body_for(*args(**bad), mode=mode) == "per_channel"
+    # RWKV6's operands: [b, t, h, k] tensors seen as [b, h, t, k], the
+    # decay rounded to bf16 (rwkv6_time_mix) or dense float32.
+    views = [torch.zeros((b, t, h, kd), dtype=bf).transpose(1, 2)
+             for _ in range(4)]
+    assert tscan.body_for(*views, mode="bonus") == "channel_decay"
+    assert tscan.body_for(*views[:3], views[3].float().contiguous(),
+                          mode="bonus") == "channel_decay"
+    # A w off the row rule (a stride of 2 bytes) keeps the CUDA-core body.
+    w_odd = torch.zeros((b, h, t, kd + 1), dtype=bf)[..., 1:]
+    assert tscan.body_for(*views[:3], w_odd) == "per_channel"
     # Mamba2's q is a stride-0 view over heads: 0 is on the 16-byte rule.
     q, k, v, _ = args()
-    for name, a in (("q", q), ("k", k), ("v", v)):
+    for name, a in (("q", q), ("k", k), ("v", v), *zip("qkvw", views)):
         check_row_layout(a, name)
 
 
@@ -435,6 +502,35 @@ def test_linear_scan_kernel_matches_plain(cuda_device, shape, mode):
         {**before, "per_channel": before["per_channel"] + 1}
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inclusive", "bonus"])
+@pytest.mark.parametrize("case", CHANNEL_CASES)
+def test_linear_scan_channel_decay_body_matches_plain(cuda_device, case,
+                                                      mode):
+    """The channel-decay body (bf16 q, k, v; w rounded to bf16 as RWKV6
+    hands it) against its twin and the per-channel chunked form, each
+    launch counted under its body: one bf16 ulp of the output (2^-7·|ref|)
+    and 1e-3 of the output's scale for TF32 products, ex2.approx and sums
+    in another order."""
+    rng = np.random.default_rng(sum(case[:5]) + len(case[5]))
+    q, k, v, w, u = (torch.from_numpy(a).to(cuda_device) for a in
+                     _channel_inputs(rng, *case))
+    q, k, v, w = (a.to(torch.bfloat16) for a in (q, k, v, w))
+    u = u if mode == "bonus" else None
+    before = dict(tscan.linear_scan.launches_by_path)
+    got = tscan.linear_scan(q, k, v, w, u, mode=mode)
+    torch.cuda.synchronize()
+    assert tscan.linear_scan.launches_by_path == \
+        {**before, "channel_decay": before["channel_decay"] + 1}
+    for want in (tscan_ref.linear_scan_channel_decay_ref(q, k, v, w, u,
+                                                         mode=mode),
+                 tscan_ref.linear_scan_chunked(q, k, v, w, u, mode=mode,
+                                               chunk=tscan.SCALAR_CHUNK)):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-3 * scale)
 
 
 @pytest.mark.cuda
