@@ -172,6 +172,22 @@ Phases, each reported on its own lines:
    and grok-1's dropped share per layer; then rwkv6-7b and gemma-7b at 2
    full-width float32 layers on the card against the CPU (prefill logits
    and every cache leaf).
+18. The last three LM families: flash attention at the shapes their
+   serving gives it for the first time, against its plain versions, with
+   time per launch, bound and SDPA's time (MLA's d = 192 with V
+   zero-padded from 128, b4 h128 s2048 causal; whisper's encoder, s1500
+   not causal; its cross-attention, q256 and q1 against 1500 frames);
+   serving at batch 4 and 32 greedy new tokens, bf16 activations:
+   deepseek-v2-236b at full width and 2 of 60 layers (the dense first
+   layer and a MoE layer of 160 experts) through ``serve.generate``,
+   whisper-medium at full depth (1500 frames, a decoder prompt of 256)
+   and llava-next-mistral-7b at full depth (2048 prompt embeddings)
+   through ``prefill``, ``_splice_prefill`` and ``decode_step``; each
+   with prefill and decode times, peak device memory, launches by body
+   checked a prefill and a decode step, a profiler pass over one prefill;
+   then each at 2 full-width float32 layers on the card against the CPU
+   (logits, every cache leaf, whisper's encoder output, 4 greedy tokens,
+   deepseek's dropped events).
 
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -1038,13 +1054,17 @@ def unique_bytes(t: torch.Tensor) -> int:
     return n * t.element_size()
 
 
-def flash_bound(q, k, v) -> tuple[float, str]:
-    """Causal attention's bound: q, k, v read once and the output written
-    once; the two products over the causal half (keys at or before each
-    query), at the bf16 tensor-core rate."""
-    b, h, s, d = q.shape
-    nbytes = sum(map(unique_bytes, (q, k, v))) + q.numel() * q.element_size()
-    return bound(nbytes, 4 * b * h * d * (s * (s + 1) // 2), BF16_OPS_PER_S)
+def flash_bound(q, k, v, causal: bool = True) -> tuple[float, str]:
+    """Attention's bound: q, k, v read once and the output (v's head dim)
+    written once; Q·Kᵀ at q's head dim and P·V at v's over the pairs a
+    query attends to (the causal half, or all of them), at the bf16
+    tensor-core rate."""
+    b, h, sq, d = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    nbytes = (sum(map(unique_bytes, (q, k, v)))
+              + b * h * sq * dv * q.element_size())
+    return bound(nbytes, 2 * b * h * (d + dv) * pairs, BF16_OPS_PER_S)
 
 
 def scan_bound(q, k, v, w, u=None) -> tuple[float, str]:
@@ -3700,12 +3720,13 @@ FAMILY_PEAK_LIMIT = 70 * 2**30   # phi3-medium-14b runs at full depth within it
 # (the kernels' f32 and per-channel bodies); cuBLAS and the kernels sum in
 # another order than the CPU's BLAS and the plain versions.  Logits as
 # phase 6; every cache leaf within 1e-4 of its largest value.
-# grok-1-314b's check (45.8 GB of float32 parameters on each side) puts a
-# first prompt row of token 0, whose embedding is zeroed: the router then
-# sees zero rows and gives all 8 experts exactly 1/8, so the card's top-k
-# must break the tie as the CPU's does (lower index first), and the tied
-# events fill experts 0 and 1 to capacity, so events drop.  Each MoE
-# layer must drop the same number of events on both sides.
+# The MoE checks (grok-1-314b: 45.8 GB of float32 parameters on each side;
+# deepseek-v2-236b in phase 18: 21.4 GB) put a first prompt row of token
+# 0, whose embedding is zeroed: the router then sees zero rows and gives
+# every expert exactly the same probability, so the card's top-k must
+# break the tie as the CPU's does (lower index first), and the tied events
+# fill the first experts to capacity, so events drop.  Each MoE layer must
+# drop the same number of events on both sides.
 FAMILY_CHECKS = ("rwkv6-7b", "gemma-7b", "grok-1-314b")
 FAMILY_CHECK_LAYERS = 2
 FAMILY_CACHE_TOL = 1e-4
@@ -3767,16 +3788,65 @@ def family_kernels(gpu: str) -> None:
     torch.cuda.empty_cache()
 
 
-def family_bodies(cfg) -> dict:
-    """Launches by body of one prefill: RWKV6 layers scan through the
-    channel-decay body (bonus mode), attention layers through wgmma."""
-    n = cfg.n_layers
-    rwkv = cfg.ssm == "rwkv6"
-    return {"wgmma": 0 if rwkv else n, "f32": 0, "scalar_decay": 0,
-            "channel_decay": n if rwkv else 0, "per_channel": 0}
+def attn_launches(cfg, decode: bool = False) -> int:
+    """flash_attention launches of one prefill (or one decode step): one a
+    self-attention layer, and in an encoder-decoder one an encoder layer
+    and one a decoder layer's cross-attention; a decode step launches only
+    cross-attention's (one query row against the frames)."""
+    if cfg.ssm == "rwkv6":
+        return 0
+    if decode:
+        return cfg.n_layers if cfg.encoder_layers else 0
+    return cfg.n_layers * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
 
 
-def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
+def family_bodies(cfg, decode: bool = False) -> dict:
+    """Launches by body of one prefill (or one decode step): RWKV6 layers
+    scan through the channel-decay body (bonus mode, prefill only),
+    attention runs through wgmma."""
+    scan = cfg.n_layers if cfg.ssm == "rwkv6" and not decode else 0
+    return {"wgmma": attn_launches(cfg, decode), "f32": 0, "scalar_decay": 0,
+            "channel_decay": scan, "per_channel": 0}
+
+
+def family_inputs(cfg, batch: int, prompt: int, seed: int,
+                  frames: int = 0) -> dict:
+    """A prefill's inputs on the host, drawn with numpy from ``seed``:
+    prompt tokens, prompt embeddings (embeddings input), or ``frames``
+    frame embeddings and a decoder prompt of tokens (encoder-decoder)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.input_mode == "tokens" or cfg.encoder_layers:
+        out["tokens"] = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (batch, prompt)).astype(np.int32))
+    if cfg.input_mode == "embeddings":
+        n = frames if cfg.encoder_layers else prompt
+        out["embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, n, cfg.d_model), dtype=np.float32))
+    return out
+
+
+def prompt_len(batch: dict) -> int:
+    """The decoder's prompt length: the tokens', else the embeddings'."""
+    return batch["tokens" if "tokens" in batch else "embeds"].shape[1]
+
+
+def greedy_decode(cfg, params, logits, dec, enc, s: int, n: int):
+    """``n`` greedy decode steps from the spliced caches ``dec`` at
+    position ``s``, each generated token embedded; returns (tokens [B, n],
+    the last step's logits)."""
+    toks = []
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    for i in range(n):
+        toks.append(tok)
+        logits, dec = lm.decode_step(params, tok, dec, s + i, cfg,
+                                     encoder_out=enc)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    return torch.stack(toks, 1), logits
+
+
+def serve_family(arch: str, depth, launches: dict, gpu: str,
+                 phase: str = "17") -> None:
     cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
     full = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=depth or full)
@@ -3785,27 +3855,35 @@ def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
                             DEV)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"phase 17: {arch}, {cfg.n_layers} of {full} layers"
-          f"{'' if cfg.n_layers == full else ' (depth cut)'}, full width "
-          f"(d_model {cfg.d_model}), {n_params:.4g} float32 parameters "
-          f"({n_params * 4 / 2**30:.2f} GiB) on the card in "
+    enc_layers = (f" + {cfg.encoder_layers} encoder layers"
+                  if cfg.encoder_layers else "")
+    print(f"phase {phase}: {arch}, {cfg.n_layers} of {full} layers"
+          f"{'' if cfg.n_layers == full else ' (depth cut)'}{enc_layers}, "
+          f"full width (d_model {cfg.d_model}), {n_params:.4g} float32 "
+          f"parameters ({n_params * 4 / 2**30:.2f} GiB) on the card in "
           f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
-    prompts = torch.randint(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                            generator=torch.Generator(device=DEV)
-                            .manual_seed(1), device=DEV)
+    # whisper's decoder prompt is the reference's s // decoder_len_ratio
+    # (launch/shapes.py), against its 30-second window of frames.
+    prompt = (LM_PROMPT // cfg.decoder_len_ratio if cfg.encoder_layers
+              else LM_PROMPT)
+    batch = {k: v.to(DEV) for k, v in family_inputs(
+        cfg, LM_BATCH, prompt, 1, WHISPER_FRAMES).items()}
+    shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     reset_lm_counts()
     t0 = time.perf_counter()
-    tokens, stats = serve.generate(cfg, params, prompts, LM_NEW)
+    tokens, stats = serve.generate(cfg, params, batch, LM_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, paths = lm_counts(), lm_paths()
     peak = torch.cuda.max_memory_allocated()
-    # generate's warm pass runs a second prefill before the timed one.
-    want = {body: 2 * n for body, n in family_bodies(cfg).items()}
+    # A warm pass (a prefill and a decode step) runs before the timed one.
+    per_prefill, per_step = family_bodies(cfg), family_bodies(cfg, True)
+    want = {body: 2 * n + (LM_NEW + 1) * per_step[body]
+            for body, n in per_prefill.items()}
     if paths != want:
-        raise AssertionError(f"{arch} generate: bodies {paths}, expected "
+        raise AssertionError(f"{arch} serving: bodies {paths}, expected "
                              f"{want}")
     for k, n in counts.items():
         launches[k] += n
@@ -3818,46 +3896,64 @@ def serve_family(arch: str, depth, launches: dict, gpu: str) -> None:
         raise AssertionError(f"{arch} at {cfg.n_layers} layers peaks at "
                              f"{peak / 2**30:.2f} GiB, over "
                              f"{FAMILY_PEAK_LIMIT / 2**30:.0f} GiB")
-    print(f"phase 17: {arch} generate batch {LM_BATCH} x prompt {LM_PROMPT} "
+    print(f"phase {phase}: {arch} serve.generate, batch {LM_BATCH}: {shapes} "
           f"+ {LM_NEW} new tokens (greedy, bf16 activations, warm pass "
           f"included in the {wall:.2f} s wall): prefill "
           f"{stats.prefill_s * 1e3:.1f} ms "
-          f"({LM_BATCH * LM_PROMPT / stats.prefill_s:.0f} prompt tokens/s), "
+          f"({LM_BATCH * prompt / stats.prefill_s:.0f} prompt tokens/s), "
           f"decode {stats.decode_s / LM_NEW * 1e3:.1f} ms/step = "
           f"{stats.tokens_per_s:.1f} tokens/s, peak device memory "
           f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
           f"before the call), launches {counts}, by body {paths} [{gpu}]",
           flush=True)
 
-    # One prefill under the profiler.
+    # One prefill under the profiler, then one decode step counted.
     out = {}
 
     def one_prefill():
-        out["logits"], _, _ = lm.prefill(params, {"tokens": prompts}, cfg)
+        out["logits"], out["caches"], out["enc"] = lm.prefill(params, batch,
+                                                               cfg)
 
     reset_lm_counts()
     line = device_breakdown(one_prefill, per=1, unit="prefill",
                             ours=("attn_wgmma_kernel",
                                   "scan_channel_decay_kernel"))
-    print(f"phase 17: {arch} prefill: {line} [{gpu}]", flush=True)
-    if lm_paths() != family_bodies(cfg):
-        raise AssertionError(f"{arch}: one prefill launched {lm_paths()}")
+    print(f"phase {phase}: {arch} prefill: {line} [{gpu}]", flush=True)
+    prefill_paths = lm_paths()
+    dec = serve._splice_prefill(
+        cfg, lm.init_cache(cfg, LM_BATCH, prompt + 1, DEV), out.pop("caches"),
+        prompt)
+    reset_lm_counts()
+    greedy_decode(cfg, params, out["logits"], dec, out["enc"], prompt, 1)
+    torch.cuda.synchronize()
+    step_paths = lm_paths()
+    print(f"phase {phase}: {arch} flash_attention launches: "
+          f"{prefill_paths['wgmma']} wgmma a prefill, {step_paths['wgmma']} "
+          f"a decode step (predicted {per_prefill['wgmma']} and "
+          f"{per_step['wgmma']})", flush=True)
+    if prefill_paths != per_prefill or step_paths != per_step:
+        raise AssertionError(f"{arch}: one prefill launched {prefill_paths}, "
+                             f"one decode step {step_paths}")
     if cfg.n_experts:
-        drops = moe_drops(params, prompts, cfg, out["logits"])
+        drops = moe_drops(params, batch["tokens"], cfg, out["logits"])
         cap = moelib.expert_capacity(LM_BATCH * LM_PROMPT, cfg)
         events = LM_BATCH * LM_PROMPT * cfg.top_k
-        print(f"phase 17: {arch} prefill dropped events by layer {drops} "
-              f"of {events}, dropped_frac "
+        print(f"phase {phase}: {arch} prefill dropped events by layer "
+              f"{drops} of {events}, dropped_frac "
               f"{[round(d / events, 6) for d in drops]} (top-{cfg.top_k} of "
               f"{cfg.n_experts} experts, capacity factor "
               f"{cfg.capacity_factor}: {cap} events per expert)", flush=True)
-    logits = out["logits"]
+    logits, enc = out["logits"], out["enc"]
     if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: prefill logits "
                              f"{tuple(logits.shape)} finite="
                              f"{bool(torch.isfinite(logits).all())}")
-    del params, logits, out, tokens
+    if cfg.encoder_layers and (
+            tuple(enc.shape) != (LM_BATCH, WHISPER_FRAMES, cfg.d_model)
+            or not bool(torch.isfinite(enc).all())):
+        raise AssertionError(f"{arch}: encoder_out {tuple(enc.shape)}")
+    del params, logits, enc, out, dec, tokens, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3873,6 +3969,8 @@ def moe_drops(params, prompts, cfg, logits) -> list[int]:
     x = lm.embed_tokens(prompts, params["embed"], cfg)
     kw = dict(mode="prefill", cache=None, cache_index=None,
               positions=torch.arange(x.shape[1], device=x.device)[None, :])
+    attn = (lm.attnlib.mla_forward if cfg.attention == "mla"
+            else lm.attnlib.gqa_forward)
     drops = []
     for seg in lm._segments(cfg):
         for i in range(seg.n_layers):
@@ -3880,8 +3978,8 @@ def moe_drops(params, prompts, cfg, logits) -> list[int]:
             if not seg.moe:
                 x, _, _ = lm.decoder_layer(p, x, cfg, moe=False, **kw)
                 continue
-            h, _ = lm.attnlib.gqa_forward(
-                p["attn"], lm.apply_norm(x, p["norm1"], cfg), cfg, **kw)
+            h, _ = attn(p["attn"], lm.apply_norm(x, p["norm1"], cfg), cfg,
+                        **kw)
             x = x + h
             h, metrics = moelib.moe_forward(
                 p["moe"], lm.apply_norm(x, p["norm2"], cfg), cfg)
@@ -3890,7 +3988,8 @@ def moe_drops(params, prompts, cfg, logits) -> list[int]:
                                * prompts.numel() * cfg.top_k))
     x = lm.apply_norm(x, params["final_norm"], cfg)
     again = lm.logits_from_hidden(x[:, -1], lm._head(params, cfg))
-    if len(drops) != cfg.n_layers or not torch.equal(again, logits):
+    n_moe = sum(seg.n_layers for seg in lm._segments(cfg) if seg.moe)
+    if len(drops) != n_moe or not torch.equal(again, logits):
         raise AssertionError(
             f"{cfg.name}: {len(drops)} MoE layers; the layer-by-layer run's "
             f"logits differ from the prefill's by "
@@ -3898,13 +3997,17 @@ def moe_drops(params, prompts, cfg, logits) -> list[int]:
     return drops
 
 
-def family_card_vs_cpu(arch: str) -> None:
-    """The card against the CPU on ``arch`` at full width and 2 layers,
-    float32: prefill logits, every cache leaf and (MoE) each layer's
-    dropped share."""
-    cfg = dataclasses.replace(get_config(arch),
-                              n_layers=FAMILY_CHECK_LAYERS, dtype="float32",
-                              attention_impl="pallas")
+def family_card_vs_cpu(arch: str, phase: str = "17", new: int = 0) -> None:
+    """The card against the CPU on ``arch`` at full width and 2 layers (and
+    2 encoder layers), float32: prefill logits, every cache leaf, the
+    encoder output, (MoE) each layer's dropped events, and with ``new``
+    the greedy tokens of ``new`` decode steps and the last step's
+    logits."""
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, n_layers=FAMILY_CHECK_LAYERS, dtype="float32",
+        encoder_layers=min(cfg.encoder_layers, FAMILY_CHECK_LAYERS),
+        attention_impl="pallas")
     t0 = time.perf_counter()
     # Drawn on the card (the CPU's generator takes about 2 s a GB), then
     # copied to the host.
@@ -3912,54 +4015,75 @@ def family_card_vs_cpu(arch: str) -> None:
                           DEV)
     cpu = convert.lm_params_from_numpy(
         {n: p.cpu().numpy() for n, p in card.named_parameters()}, cfg, "cpu")
-    prompts = torch.from_numpy(np.random.default_rng(6).integers(
-        1, cfg.vocab_size, (CHECK_BATCH, CHECK_PROMPT)).astype(np.int32))
+    batch = family_inputs(cfg, CHECK_BATCH, CHECK_PROMPT, 6, WHISPER_FRAMES)
     if cfg.n_experts:   # a tied first row (FAMILY_CHECKS' comment)
-        prompts = torch.cat([torch.zeros_like(prompts[:1]), prompts])
+        batch["tokens"] = torch.cat([torch.zeros_like(batch["tokens"][:1]),
+                                     batch["tokens"]])
         for params in (cpu, card):
             params["embed"].data[0] = 0.0
     sides = {"cpu": cpu, "card": card}
+    s = prompt_len(batch)
     reset_lm_counts()
-    res = {}
+    res, fields = {}, []
     for side, params in sides.items():
-        logits, caches, _ = lm.prefill(
-            params, {"tokens": prompts.to(params["embed"].device)}, cfg)
-        res[side] = [logits.cpu()] + [c.cpu() for seg in caches.values()
-                                      for c in seg]
+        dev = params["embed"].device
+        logits, caches, enc = lm.prefill(
+            params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        fields = ["logits"] + [f"{name}.{f}" for name, seg in caches.items()
+                               for f in seg._fields]
+        res[side] = [logits] + [c for seg in caches.values() for c in seg]
+        if enc is not None:
+            fields.append("encoder_out")
+            res[side].append(enc)
+        if new:
+            dec = serve._splice_prefill(
+                cfg, lm.init_cache(cfg, logits.shape[0], s + new, dev),
+                caches, s)
+            toks, last = greedy_decode(cfg, params, logits, dec, enc, s, new)
+            fields += ["decode logits", "greedy tokens"]
+            res[side] += [last, toks]
+        res[side] = [t.cpu() for t in res[side]]
     paths = lm_paths()
-    drops = {side: moe_drops(params, prompts.to(params["embed"].device), cfg,
-                             res[side][0].to(params["embed"].device))
-             for side, params in sides.items()} if cfg.n_experts else {}
-    fields = ["logits"] + [f"{name}.{f}" for name, seg in caches.items()
-                           for f in seg._fields]
+    drops = {side: moe_drops(params, batch["tokens"].to(
+        params["embed"].device), cfg, res[side][0].to(params["embed"].device))
+        for side, params in sides.items()} if cfg.n_experts else {}
     errs = []
     for name, a, b in zip(fields, res["cpu"], res["card"], strict=True):
+        if name == "greedy tokens":
+            if not torch.equal(a, b):
+                raise AssertionError(f"{arch} greedy tokens: card "
+                                     f"{b.tolist()}, CPU {a.tolist()}")
+            errs.append(f"{new} greedy tokens equal {b.tolist()}")
+            continue
         err = float((a - b).abs().max())
-        tol = CHECK_LOGIT_TOL if name == "logits" \
+        tol = CHECK_LOGIT_TOL if "logits" in name \
             else FAMILY_CACHE_TOL * float(a.abs().max())
         errs.append(f"{name} {err:.3g} (tolerance {tol:.3g})")
         if not bool(torch.isfinite(b).all()) or err > tol:
             raise AssertionError(f"{arch} {name}: card vs CPU max abs err "
                                  f"{err} > {tol}")
-    # float32 operands take the CUDA-core bodies, one launch a layer.
+    # float32 operands take the CUDA-core bodies, on the card side only.
     want = {"wgmma": 0, "f32": 0, "scalar_decay": 0, "channel_decay": 0,
             "per_channel": 0}
-    want["per_channel" if cfg.ssm == "rwkv6" else "f32"] = cfg.n_layers
+    if cfg.ssm == "rwkv6":
+        want["per_channel"] = cfg.n_layers
+    else:
+        want["f32"] = attn_launches(cfg) + new * attn_launches(cfg, True)
     if paths != want:
-        raise AssertionError(f"{arch} float32 card prefill went through "
-                             f"{paths}")
+        raise AssertionError(f"{arch} float32 card run went through {paths}, "
+                             f"expected {want}")
     if drops:
         if drops["card"] != drops["cpu"] or not drops["cpu"][0] > 0:
             raise AssertionError(f"{arch} dropped events by layer: card "
                                  f"{drops['card']}, CPU {drops['cpu']}")
         errs.append(f"dropped events by layer {drops['card']} of "
-                    f"{prompts.numel() * cfg.top_k} on both sides")
-    print(f"phase 17: {arch} full width, {FAMILY_CHECK_LAYERS} layers, "
-          f"float32, batch {prompts.shape[0]} x prompt {CHECK_PROMPT}: "
-          f"card == CPU; max abs err {'; '.join(errs)}; logits up to "
-          f"{float(res['cpu'][0].abs().max()):.3g}; bodies {paths}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    del cpu, card, sides, params, res, logits, caches
+                    f"{batch['tokens'].numel() * cfg.top_k} on both sides")
+    shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    print(f"phase {phase}: {arch} full width, {FAMILY_CHECK_LAYERS} layers, "
+          f"float32, {shapes}: card == CPU; max abs err {'; '.join(errs)}; "
+          f"logits up to {float(res['cpu'][0].abs().max()):.3g}; bodies "
+          f"{paths}; {time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu, card, sides, params, res
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3970,6 +4094,90 @@ def phase17(launches: dict, gpu: str) -> None:
         serve_family(arch, depth, launches, gpu)
     for arch in FAMILY_CHECKS:
         family_card_vs_cpu(arch)
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: MLA (deepseek-v2), whisper's encoder-decoder, llava's embeddings
+# ---------------------------------------------------------------------------
+
+WHISPER_FRAMES = 1500            # n_audio_ctx: Whisper's 30-second window
+# (arch, depth or None for full depth).  deepseek-v2-236b runs its dense
+# first layer and one MoE layer (5.36e9 float32 parameters, 21.4 GB; all
+# 60 layers would take 943 GB).
+FAMILIES_18 = (("deepseek-v2-236b", 2), ("whisper-medium", None),
+               ("llava-next-mistral-7b", None))
+
+
+def heads_view(gen, b, h, s, d, dtype):
+    """A [b, h, s, d] transposed view of a [b, s, h, d] tensor, as
+    ``_split_heads`` hands q, k and v to the kernel."""
+    return (torch.randn((b, s, h, d), generator=gen, device=DEV).to(dtype)
+            .transpose(1, 2))
+
+
+def new_shape_kernels(gpu: str) -> None:
+    """flash_attention at each shape the three families' serving gives it
+    for the first time, against its plain versions; time per launch, plain
+    time, bound and SDPA's time."""
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    bf16 = torch.bfloat16
+    ds, wh = get_config("deepseek-v2-236b"), get_config("whisper-medium")
+    dqk = ds.qk_nope_head_dim + ds.qk_rope_head_dim
+    dv = ds.v_head_dim
+    b, h = LM_BATCH, ds.n_heads
+    # MLA: q and k concatenated (contiguous), V expanded from the latent and
+    # zero-padded from v_head_dim to the q/k head dim, as mla_forward does.
+    mla = tuple(torch.randn((b, h, LM_PROMPT, d), generator=gen,
+                            device=DEV).to(bf16) for d in (dqk, dqk, dv))
+    hw, dw, sw = wh.n_heads, wh.head_dim_, LM_PROMPT // wh.decoder_len_ratio
+    frames = [heads_view(gen, b, hw, WHISPER_FRAMES, dw, bf16)
+              for _ in range(2)]
+    cases = (
+        (f"deepseek-v2-236b MLA prefill: b{b} h{h} s{LM_PROMPT} d{dqk}, v "
+         f"{dv} zero-padded to {dqk}, causal", mla, True),
+        (f"whisper-medium encoder: b{b} h{hw} s{WHISPER_FRAMES} d{dw}, not "
+         f"causal", (heads_view(gen, b, hw, WHISPER_FRAMES, dw, bf16),
+                     *frames), False),
+        (f"whisper-medium decoder self-attention: b{b} h{hw} s{sw} d{dw}, "
+         f"causal", tuple(heads_view(gen, b, hw, sw, dw, bf16)
+                          for _ in range(3)), True),
+        (f"whisper-medium cross-attention, prefill: b{b} h{hw} q{sw} "
+         f"kv{WHISPER_FRAMES} d{dw}", (heads_view(gen, b, hw, sw, dw, bf16),
+                                      *frames), False),
+        (f"whisper-medium cross-attention, decode: b{b} h{hw} q1 "
+         f"kv{WHISPER_FRAMES} d{dw}", (heads_view(gen, b, hw, 1, dw, bf16),
+                                      *frames), False),
+    )
+    for name, (q, k, v_raw), causal in cases:
+        v = F.pad(v_raw, (0, q.shape[-1] - v_raw.shape[-1])) \
+            if v_raw.shape[-1] != q.shape[-1] else v_raw
+        err = flash_check(name, q, k, v, causal, "wgmma", "18")
+        b_ms, b_by = flash_bound(q, k, v_raw, causal)
+        block = flash_ops.block_kv_for(q.shape[-1])
+        ms = graph_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                        causal=causal), 10, 5)
+        plain = eager_ms(lambda: attention_blocked_ref(
+            q, k, v, block_kv=block, causal=causal), 2, 1)
+        # SDPA takes the unpadded V (dv != d) on the card.
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v_raw, is_causal=causal), 10, 5)
+        note = "unpadded V" if v is not v_raw else "same operands"
+        print(f"phase 18: flash_attention {name} (wgmma, {block}-key tiles): "
+              f"kernel {ms:.4f} ms (graph replay), plain {plain:.4f} ms "
+              f"(attention_blocked_ref), SDPA {sdpa:.4f} ms ({note}), bound "
+              f"{b_ms:.4f} ms ({b_by}), max abs err {err:.3g} [{gpu}]",
+              flush=True)
+        del v
+    del q, k, v_raw, mla, frames, cases
+    torch.cuda.empty_cache()
+
+
+def phase18(launches: dict, gpu: str) -> None:
+    new_shape_kernels(gpu)
+    for arch, depth in FAMILIES_18:
+        serve_family(arch, depth, launches, gpu, "18")
+    for arch, _ in FAMILIES_18:
+        family_card_vs_cpu(arch, "18", CHECK_NEW)
 
 
 def main() -> None:
@@ -4014,6 +4222,7 @@ def main() -> None:
     timed_phase("15", lambda: phase15(launches, gpu))
     timed_phase("16", lambda: phase16(launches, gpu))
     timed_phase("17", lambda: phase17(launches, gpu))
+    timed_phase("18", lambda: phase18(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,9 +1,5 @@
-"""Architecture registry of the LM harness, with the smoke reductions.
-
-The JAX package registers ten architectures.  The port carries the config
-of each family it has ported; asking for one whose family is still to port
-raises ``NotImplementedError`` naming the ROADMAP item that covers it.
-"""
+"""Architecture registry of the LM harness, with the smoke reductions: the
+same ten architectures as the JAX package registers."""
 
 from __future__ import annotations
 
@@ -12,30 +8,26 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, count_params  # noqa: F401
 
-# Ported architectures → config module.
+# Architecture → config module.
 _ARCH_MODULES = {
-    "zamba2-7b": "zamba2_7b",
-    "rwkv6-7b": "rwkv6_7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "smollm-135m": "smollm_135m",
     "phi3-medium-14b": "phi3_medium_14b",
     "gemma-7b": "gemma_7b",
     "qwen3-8b": "qwen3_8b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "grok-1-314b": "grok_1_314b",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-7b": "rwkv6_7b",
+    "whisper-medium": "whisper_medium",
 }
-# Known architectures whose family the port does not run yet.
-_UNPORTED = ("llava-next-mistral-7b", "deepseek-v2-236b", "whisper-medium")
 
 ARCH_NAMES = list(_ARCH_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: ROADMAP.md queue 1 item 10 (LM "
-            f"workload harness) lists the families still to port")
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{ARCH_NAMES + list(_UNPORTED)}")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG
 

@@ -136,9 +136,11 @@ def lm_caches_from_numpy(arrays: dict[str, np.ndarray], cfg, device=None):
     to ``{path: array}``: for zamba2 the tuple (Mamba2 cache, shared-block
     KV cache) as ``0.conv``, ``0.state``, ``1.k``, ``1.v``; for RWKV6 one
     ``SSMCache`` per segment (``layers.conv``, ``layers.state``); otherwise
-    one KV cache per segment (``layers.k``, ``layers.v``).  Conv and K/V
-    leaves take the config's activation dtype, recurrent states stay
-    float32."""
+    one KV cache per segment (``layers.k``, ``layers.v``; for MLA the
+    latent cache of each segment, ``dense.k`` = c_kv [n, B, S, kv_lora]
+    and ``dense.v`` = k_rope [n, B, S, rope], then ``moe.k``, ``moe.v``).
+    Conv, K/V and latent leaves take the config's activation dtype,
+    recurrent states stay float32."""
     dt = dtype_of(cfg.dtype)
     if cfg.attn_every:
         t = _tensors(arrays, {"0.conv": dt, "0.state": torch.float32,

@@ -41,7 +41,13 @@ def generate(cfg, params, prompts: torch.Tensor, max_new: int,
              max_len: int | None = None, greedy: bool = True,
              temperature: float = 1.0, key: torch.Generator | None = None,
              warm: bool = True):
-    """Batched generation.  prompts: int[B, S], on the parameters' device.
+    """Batched generation.  prompts: int[B, S] token ids, as the JAX
+    package's ``generate`` takes, or a batch dict as ``model.prefill``
+    takes it (``embeds`` [B, S, D] for embeddings input; ``embeds`` frames
+    and decoder ``tokens`` for an encoder-decoder), on the parameters'
+    device.  The prompt length S is the tokens', else the embeddings'.
+    Prefill's encoder output, if any, goes to every decode step; the
+    generated tokens are fed back as token ids.
 
     ``greedy=True`` (default) picks the argmax at every step —
     deterministic.  ``greedy=False`` samples from the temperature-scaled
@@ -55,8 +61,10 @@ def generate(cfg, params, prompts: torch.Tensor, max_new: int,
     set-up (the kernels' build, library handles, allocator growth).  The
     warm pass leaves ``key``'s state as it found it.
     """
-    b, s = prompts.shape
-    device = prompts.device
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    lead = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    b, s = lead.shape[:2]
+    device = lead.device
     max_len = max_len or (s + max_new)
     greedy = greedy or temperature <= 0.0
     if not greedy and key is None:
@@ -71,18 +79,19 @@ def generate(cfg, params, prompts: torch.Tensor, max_new: int,
 
     if warm:
         key_state = None if greedy else key.get_state()
-        w_logits, w_caches, _ = M.prefill(params, {"tokens": prompts}, cfg)
+        w_logits, w_caches, w_enc = M.prefill(params, batch, cfg)
         w_dec = _splice_prefill(cfg, M.init_cache(cfg, b, max_len, device),
                                 w_caches, s)
-        w_logits2, _ = M.decode_step(params, select(w_logits), w_dec, s, cfg)
+        w_logits2, _ = M.decode_step(params, select(w_logits), w_dec, s, cfg,
+                                     encoder_out=w_enc)
         select(w_logits2)
         _sync(device)
         if key_state is not None:
             key.set_state(key_state)
-        del w_logits, w_caches, w_dec, w_logits2
+        del w_logits, w_caches, w_enc, w_dec, w_logits2
 
     t0 = time.perf_counter()
-    logits, caches, _ = M.prefill(params, {"tokens": prompts}, cfg)
+    logits, caches, enc_out = M.prefill(params, batch, cfg)
     # Move prefill caches into the fixed-size decode cache.
     dec_caches = _splice_prefill(cfg, M.init_cache(cfg, b, max_len, device),
                                  caches, s)
@@ -95,7 +104,8 @@ def generate(cfg, params, prompts: torch.Tensor, max_new: int,
     t0 = time.perf_counter()
     for i in range(max_new):
         out_tokens.append(tok)
-        logits, dec_caches = M.decode_step(params, tok, dec_caches, s + i, cfg)
+        logits, dec_caches = M.decode_step(params, tok, dec_caches, s + i, cfg,
+                                           encoder_out=enc_out)
         tok = select(logits)
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -159,12 +169,15 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     # The hand-written kernels: launched on the card, their plain versions
     # on the CPU.
     cfg = dataclasses.replace(get_config(args.arch), attention_impl="pallas")
     if args.smoke:
         cfg = smoke_config(cfg)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit("serve demo supports token-input archs; "
+                         "vlm/audio decode is covered by the dry-run cells")
+    device = resolve_device(args.device)
     params = M.init_params(torch.Generator(device=device).manual_seed(0), cfg,
                            device)
     prompts = torch.randint(1, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA/MHA self-attention and the scaled dot-product core.
+"""Attention variants: GQA/MQA/MHA, MLA (DeepSeek-V2), cross-attention, and
+the scaled dot-product core.
 
 Three entry modes share one parameter set:
   * ``train``   — full causal self-attention over the sequence;
@@ -6,8 +7,11 @@ Three entry modes share one parameter set:
   * ``decode``  — one query token against the cache, written at
                   ``cache_index``.
 
-MLA (DeepSeek-V2) and cross-attention are still to port (ROADMAP.md queue 1
-item 10).
+MLA decode uses the *absorbed* formulation: queries are projected into the
+kv_lora latent space (q_eff = q_nope · W_uk), scores are taken directly
+against the cached compressed latent, and the attention-weighted latent is
+expanded through W_uv afterwards — the cache stays at (kv_lora + rope_dim)
+per token.
 """
 
 from __future__ import annotations
@@ -19,15 +23,15 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import (NOT_PORTED, Params, apply_rope, dense,
+from repro_torch.models.layers import (Params, apply_rope, dense, dtype_of,
                                        new_param, rms_norm)
 
 NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor   # [B, n_kv, S_max, hd]
-    v: torch.Tensor   # [B, n_kv, S_max, hd]
+    k: torch.Tensor   # [B, n_kv, S_max, hd]   (MLA: c_kv [B, S_max, kv_lora])
+    v: torch.Tensor   # [B, n_kv, S_max, hd]   (MLA: k_rope [B, S_max, rope])
 
 
 # ---------------------------------------------------------------------------
@@ -132,17 +136,18 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "xla",
 
 
 class GQA(Params):
-    def __init__(self, cfg: ModelConfig, gen=None, stack=(), device=None):
+    """GQA projections; ``cross=True`` (cross-attention) has no q/k norms."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, stack=(), device=None,
+                 cross: bool = False):
         super().__init__()
-        if cfg.attention == "mla":
-            raise NotImplementedError(f"MLA attention {NOT_PORTED}")
         d, hd = cfg.d_model, cfg.head_dim_
         self.wq = dense(gen, stack, d, cfg.n_heads * hd, device)
         self.wk = dense(gen, stack, d, cfg.n_kv_heads * hd, device)
         self.wv = dense(gen, stack, d, cfg.n_kv_heads * hd, device)
         self.wo = dense(gen, stack, cfg.n_heads * hd, d, device,
                         scale=1.0 / (cfg.n_heads * hd) ** 0.5)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = new_param(None, (*stack, hd), device, fill=1.0)
             self.k_norm = new_param(None, (*stack, hd), device, fill=1.0)
 
@@ -158,25 +163,30 @@ def gqa_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                 kv_source=None, use_rope: bool = True):
     """Returns (out [B,S,D], new_cache | None).
 
+    ``kv_source``: cross-attention source (encoder states); K/V come from
+    it, no causal mask or rope applies, and no decode cache is read.
+
     In decode, this step's K/V are written into ``cache`` in place at
     ``cache_index`` (a saving over the JAX package's functional update: the
     caches are the decode loop's own), and the returned cache is ``cache``.
     """
-    if kv_source is not None:
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
     b, s, _ = x.shape
     hd = cfg.head_dim_
     dt = x.dtype
-    score_dtype = {"float32": torch.float32,
-                   "bfloat16": torch.bfloat16}[cfg.attn_score_dtype]
+    cross = kv_source is not None
+    if cross and cache is not None:
+        raise ValueError("cross-attention takes its K/V from kv_source, "
+                         "not from a cache")
+    kv_in = kv_source if cross else x
+    score_dtype = dtype_of(cfg.attn_score_dtype)
 
     q = _split_heads(x @ params["wq"].to(dt), cfg.n_heads, hd)
-    k = _split_heads(x @ params["wk"].to(dt), cfg.n_kv_heads, hd)
-    v = _split_heads(x @ params["wv"].to(dt), cfg.n_kv_heads, hd)
+    k = _split_heads(kv_in @ params["wk"].to(dt), cfg.n_kv_heads, hd)
+    v = _split_heads(kv_in @ params["wv"].to(dt), cfg.n_kv_heads, hd)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    if use_rope:
+    if use_rope and not cross:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
@@ -191,10 +201,127 @@ def gqa_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
                    impl=cfg.attention_impl, decode_index=cache_index,
                    score_dtype=score_dtype)
     else:
-        out = sdpa(q, k, v, causal=True, impl=cfg.attention_impl,
+        out = sdpa(q, k, v, causal=not cross, impl=cfg.attention_impl,
                    block_kv=cfg.attn_block_kv, score_dtype=score_dtype)
         if mode == "prefill":
             new_cache = KVCache(k=k, v=v)
 
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    return out @ params["wo"].to(dt), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+class MLA(Params):
+    """MLA projections: the query either through the low-rank ``wq_a`` →
+    ``q_norm`` → ``wq_b`` (``q_lora_rank`` set) or one ``wq``; the joint
+    K/V latent ``wkv_a`` → ``kv_norm`` → ``wkv_b``; the output ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, stack=(), device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        vd, lora = cfg.v_head_dim, cfg.kv_lora_rank
+        if cfg.q_lora_rank:
+            self.wq_a = dense(gen, stack, d, cfg.q_lora_rank, device)
+            self.q_norm = new_param(None, (*stack, cfg.q_lora_rank), device,
+                                    fill=1.0)
+            self.wq_b = dense(gen, stack, cfg.q_lora_rank, h * (nope + rope_d),
+                              device)
+        else:
+            self.wq = dense(gen, stack, d, h * (nope + rope_d), device)
+        self.wkv_a = dense(gen, stack, d, lora + rope_d, device)
+        self.kv_norm = new_param(None, (*stack, lora), device, fill=1.0)
+        self.wkv_b = dense(gen, stack, lora, h * (nope + vd), device)
+        self.wo = dense(gen, stack, h * vd, d, device,
+                        scale=1.0 / (h * vd) ** 0.5)
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    h, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    dt = x.dtype
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ params["wq_a"].to(dt), params["q_norm"])
+        q = cq @ params["wq_b"].to(dt)
+    else:
+        q = x @ params["wq"].to(dt)
+    q = q.reshape(b, s, h, -1).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
+                mode: str = "train", positions: torch.Tensor | None = None,
+                cache: KVCache | None = None, cache_index=None):
+    """MLA attention.  Cache layout: KVCache(c_kv [B,S,kv_lora],
+    k_rope [B,S,rope_d]) — the compressed latent, not expanded K/V.
+
+    Train/prefill expand K/V and run ``sdpa`` with q/k head dim nope + rope
+    and v head dim ``v_head_dim``.  The flash-attention kernel takes one
+    head dim, so under ``"pallas"`` V is padded with zero columns to the
+    q/k head dim and the output cut back to ``v_head_dim``: zero columns
+    of V add nothing to P·V, so this computes what the plain path
+    computes.  (The JAX package's ``"pallas"`` path passes the unpadded V
+    to its kernel, whose output takes q's shape, and raises at the
+    reshape.)  Decode is the absorbed form, in float32 scores against the
+    latent and rope caches, and launches no kernel; this step's latent is
+    written into ``cache`` in place at ``cache_index``.
+    """
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+
+    kv_a = x @ params["wkv_a"].to(dt)                     # [B,S,lora+rope]
+    c_kv = rms_norm(kv_a[..., :lora], params["kv_norm"])
+    k_rope = apply_rope(kv_a[..., lora:], positions, cfg.rope_theta)
+
+    sm_scale = 1.0 / ((nope + rope_d) ** 0.5)
+    w_kv_b = params["wkv_b"].to(dt).reshape(lora, h, nope + vd)
+    w_uk, w_uv = w_kv_b[..., :nope], w_kv_b[..., nope:]
+
+    new_cache = None
+    if mode == "decode" and cache is not None:
+        cache.k[:, cache_index:cache_index + s] = c_kv.to(cache.k.dtype)
+        cache.v[:, cache_index:cache_index + s] = k_rope.to(cache.v.dtype)
+        new_cache = cache
+        # Absorbed decode: q_eff[b,h,q,lora] = q_nope · W_uk
+        q_eff = torch.einsum("bhqn,lhn->bhql", q_nope, w_uk)
+        c32 = cache.k.float()
+        scores = (torch.einsum("bhql,bsl->bhqs", q_eff.float(), c32)
+                  + torch.einsum("bhqr,bsr->bhqs", q_rope.float(),
+                                 cache.v.float())) * sm_scale
+        kpos = torch.arange(cache.k.shape[1], device=x.device)
+        scores = torch.where(kpos <= cache_index, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        latent = torch.einsum("bhqs,bsl->bhql", p, c32).to(dt)
+        out = torch.einsum("bhql,lhv->bhqv", latent, w_uv)
+    else:
+        # Train/prefill: expand K/V.
+        kv = torch.einsum("bsl,lhx->bhsx", c_kv, w_kv_b)  # [B,H,S,nope+vd]
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope[:, None].expand(b, h, s, rope_d)], -1)
+        q = torch.cat([q_nope, q_rope], -1)
+        kw = dict(causal=True, impl=cfg.attention_impl, sm_scale=sm_scale,
+                  block_kv=cfg.attn_block_kv,
+                  score_dtype=dtype_of(cfg.attn_score_dtype))
+        if cfg.attention_impl == "pallas" and vd < nope + rope_d:
+            out = sdpa(q, k, F.pad(v, (0, nope + rope_d - vd)), **kw)[..., :vd]
+        else:
+            out = sdpa(q, k, v, **kw)
+        if mode == "prefill":
+            new_cache = KVCache(k=c_kv, v=k_rope)
+
+    out = out.transpose(1, 2).reshape(b, s, h * vd)
     return out @ params["wo"].to(dt), new_cache

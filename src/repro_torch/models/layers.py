@@ -25,8 +25,6 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# What the port says of the LM harness's parts it does not run yet.
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1 item 10)"
 
 
 def dtype_of(name: str) -> torch.dtype:

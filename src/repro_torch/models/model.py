@@ -1,17 +1,20 @@
-"""Model top level: init / prefill / decode.
+"""Model top level: init / prefill / decode for every registered arch.
 
-The port runs the decoder-only stacks: zamba2's hybrid stack (Mamba2
-layers with one shared attention + MLP block applied every ``attn_every``
-layers), RWKV6's attention-free stack, and stacks of GQA layers with an
-MLP or the MoE layer (a segment of each kind, as the JAX package splits
-them).  Where the JAX package scans over a stacked layer axis, the port
-loops over it in Python; parameters and caches keep the stacked layout.
-Training, MLA and the encoder-decoder stack are still to port (ROADMAP.md
+The stacks: zamba2's hybrid stack (Mamba2 layers with one shared attention
++ MLP block applied every ``attn_every`` layers), RWKV6's attention-free
+stack, stacks of GQA or MLA layers with an MLP or the MoE layer (a segment
+of each kind, as the JAX package splits them), and whisper's
+encoder-decoder (a bidirectional encoder over frame embeddings, decoder
+layers with cross-attention to its output).  Embeddings-input archs
+(llava) take ``embeds`` in place of tokens.  Where the JAX package scans
+over a stacked layer axis, the port loops over it in Python; parameters
+and caches keep the stacked layout.  Training is still to port (ROADMAP.md
 queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -20,10 +23,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attnlib
 from repro_torch.models import ssm as ssmlib
-from repro_torch.models.layers import (MLP, NOT_PORTED, Norm, Params,
-                                       apply_mlp, apply_norm, dtype_of,
-                                       embed_tokens, init_embedding,
-                                       logits_from_hidden)
+from repro_torch.models.layers import (MLP, Norm, Params, apply_mlp,
+                                       apply_norm, dtype_of, embed_tokens,
+                                       init_embedding, logits_from_hidden)
 from repro_torch.models.transformer import DecoderLayers, decoder_layer
 
 
@@ -49,15 +51,27 @@ def _segments(cfg: ModelConfig) -> list[StackSegment]:
 # ---------------------------------------------------------------------------
 
 
+class EncoderLayers(Params):
+    """whisper's encoder layers, stacked: pre-norm bidirectional attention
+    (no q/k norms) and an MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, device=None):
+        super().__init__()
+        stack = (cfg.encoder_layers,)
+        self.norm1 = Norm(cfg, stack, device)
+        self.attn = attnlib.GQA(dataclasses.replace(cfg, qk_norm=False), gen,
+                                stack, device)
+        self.norm2 = Norm(cfg, stack, device)
+        self.mlp = MLP(cfg, gen, stack, device)
+
+
 class LMParams(Params):
     """Every parameter of the model, named by its JAX pytree path."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
                  device=None):
         super().__init__()
-        if cfg.encoder_layers:
-            raise NotImplementedError(
-                f"the encoder-decoder stack {NOT_PORTED}")
+        # Embeddings-input archs still embed generated tokens in decode.
         self.embed = init_embedding(gen, cfg, device)
         if not cfg.tie_embeddings:
             self.head = init_embedding(gen, cfg, device)  # [vocab, d]
@@ -70,6 +84,9 @@ class LMParams(Params):
             self.shared_mlp = MLP(cfg, gen, (), device)
             self.shared_norm1 = Norm(cfg, (), device)
             self.shared_norm2 = Norm(cfg, (), device)
+        if cfg.encoder_layers:              # whisper encoder
+            self.encoder = EncoderLayers(cfg, gen, device)
+            self.encoder_norm = Norm(cfg, (), device)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -102,11 +119,11 @@ def _stacked(new_caches: list):
 
 
 def _run_layer(layers: Params, i: int, x, cfg, caches, new, *, mode,
-               positions, cache_index, moe: bool = False):
+               positions, cache_index, moe: bool = False, encoder_out=None):
     cache = _layer_cache(caches, i)
     x, nc, _ = decoder_layer(layers.layer(i), x, cfg, moe=moe, mode=mode,
                              positions=positions, cache=cache,
-                             cache_index=cache_index)
+                             cache_index=cache_index, encoder_out=encoder_out)
     if mode == "decode" and nc is not cache:  # KV caches are written in place
         _store(caches, i, nc)
     elif mode == "prefill":
@@ -143,9 +160,34 @@ def _zamba_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
     return x, caches
 
 
+def _sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], -1)[:, :d]
+
+
+def _encoder_stack(params, x, cfg: ModelConfig):
+    """Whisper encoder: bidirectional attention over (stub) frame embeddings
+    with sinusoidal positions.  Full attention is expressed through the
+    cross-attention path (kv_source = normed x → no causal mask, no rope)."""
+    x = x + _sinusoidal_positions(x.shape[1], x.shape[-1],
+                                  x.device).to(x.dtype)
+    layers = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        lp = layers.layer(i)
+        normed = apply_norm(x, lp["norm1"], cfg)
+        h, _ = attnlib.gqa_forward(lp["attn"], normed, cfg, mode="train",
+                                   kv_source=normed)
+        x = x + h
+        x = x + apply_mlp(apply_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+    return apply_norm(x, params["encoder_norm"], cfg)
+
+
 def apply_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
-                caches, cache_index):
-    """Run the decoder stack.  Returns (x, caches): prefill's new stacked
+                caches, cache_index, encoder_out=None):
+    """Run the decoder stack, each layer attending to ``encoder_out`` where
+    it has cross-attention.  Returns (x, caches): prefill's new stacked
     caches, decode's ``caches`` updated in place, or None in train mode."""
     if cfg.attn_every:
         return _zamba_stack(params, x, cfg, mode=mode, positions=positions,
@@ -157,7 +199,8 @@ def apply_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
         for i in range(seg.n_layers):
             x = _run_layer(params[seg.name], i, x, cfg, seg_caches, new,
                            mode=mode, positions=positions,
-                           cache_index=cache_index, moe=seg.moe)
+                           cache_index=cache_index, moe=seg.moe,
+                           encoder_out=encoder_out)
         if mode == "prefill":
             new_caches[seg.name] = _stacked(new)
     if mode == "decode":
@@ -173,8 +216,9 @@ def apply_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Layer-stacked decode caches, zeros: for zamba2 (Mamba2 caches
     [n_layers, ...], shared-block KV caches [groups, ...]); otherwise
-    {segment: cache [n_layers, ...]}, RWKV6's ``SSMCache`` or a KV
-    cache."""
+    {segment: cache [n_layers, ...]}, RWKV6's ``SSMCache``, MLA's latent
+    cache ``KVCache(k=c_kv [n, B, S_max, kv_lora], v=k_rope [n, B, S_max,
+    rope])`` or a KV cache."""
     device = resolve_device(device)
     dt = dtype_of(cfg.dtype)
 
@@ -182,6 +226,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
         shape = (n, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
         return attnlib.KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                                v=torch.zeros(shape, dtype=dt, device=device))
+
+    def mla(n):
+        return attnlib.KVCache(
+            k=torch.zeros((n, batch, max_len, cfg.kv_lora_rank), dtype=dt,
+                          device=device),
+            v=torch.zeros((n, batch, max_len, cfg.qk_rope_head_dim),
+                          dtype=dt, device=device))
 
     def ssm(one, n):
         return ssmlib.SSMCache(*(torch.zeros((n, *c.shape), dtype=c.dtype,
@@ -194,9 +245,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     if cfg.ssm == "rwkv6":
         one = ssmlib.init_rwkv6_cache(cfg, batch, dt, device)
         return {seg.name: ssm(one, seg.n_layers) for seg in _segments(cfg)}
-    if cfg.ssm != "none" or cfg.attention == "mla":
-        raise NotImplementedError(
-            f"{cfg.ssm}/{cfg.attention} caches {NOT_PORTED}")
+    if cfg.attention == "mla":
+        return {seg.name: mla(seg.n_layers) for seg in _segments(cfg)}
     return {seg.name: kv(seg.n_layers) for seg in _segments(cfg)}
 
 
@@ -209,41 +259,53 @@ def _head(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
-def _tokens_only(cfg: ModelConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode={cfg.input_mode!r} {NOT_PORTED}")
-
-
 @torch.no_grad()
 def prefill(params, batch: dict, cfg: ModelConfig):
     """Full-sequence forward building the decode cache.
 
-    Returns (logits_last [B, vocab] float32, caches, None) — the last is
-    the JAX signature's encoder output, which token-input models lack.
+    ``batch``: ``tokens`` [B, S] for token-input archs, ``embeds`` [B, S, D]
+    for embeddings-input ones, and both for the encoder-decoder (the
+    encoder's frames and the decoder's prompt).
+
+    Returns (logits_last [B, vocab] float32, caches, encoder_out | None).
     """
-    _tokens_only(cfg)
-    x = embed_tokens(batch["tokens"], params["embed"], cfg)
+    encoder_out = None
+    if cfg.encoder_layers:
+        encoder_out = _encoder_stack(
+            params, batch["embeds"].to(dtype_of(cfg.dtype)), cfg)
+        x = embed_tokens(batch["tokens"], params["embed"], cfg)
+    elif cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(dtype_of(cfg.dtype))
+    else:
+        x = embed_tokens(batch["tokens"], params["embed"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, caches = apply_stack(params, x, cfg, mode="prefill",
-                            positions=positions, caches=None, cache_index=None)
+                            positions=positions, caches=None, cache_index=None,
+                            encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)
-    return logits_from_hidden(x[:, -1], _head(params, cfg)), caches, None
+    return (logits_from_hidden(x[:, -1], _head(params, cfg)), caches,
+            encoder_out)
 
 
 @torch.no_grad()
-def decode_step(params, tokens, caches, cache_index: int, cfg: ModelConfig):
-    """One decode step.  tokens: [B] int.  Writes this step's K/V and
-    recurrent state into ``caches`` in place.
+def decode_step(params, tokens, caches, cache_index: int, cfg: ModelConfig,
+                *, encoder_out=None):
+    """One decode step.  tokens: [B] int, or [B, D] embeds for an
+    embeddings-input decoder-only arch.  Writes this step's K/V and
+    recurrent state into ``caches`` in place; ``encoder_out`` is the
+    encoder-decoder's prefill output.
 
     Returns (logits [B, vocab] float32, caches).
     """
-    _tokens_only(cfg)
-    x = embed_tokens(tokens[:, None], params["embed"], cfg)
+    if cfg.input_mode == "embeddings" and tokens.dim() == 2 \
+            and not cfg.encoder_layers:
+        x = tokens[:, None, :].to(dtype_of(cfg.dtype))
+    else:
+        x = embed_tokens(tokens[:, None], params["embed"], cfg)
     positions = torch.full((x.shape[0], 1), cache_index, dtype=torch.int32,
                            device=x.device)
     x, caches = apply_stack(params, x, cfg, mode="decode",
                             positions=positions, caches=caches,
-                            cache_index=cache_index)
+                            cache_index=cache_index, encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)
     return logits_from_hidden(x[:, 0], _head(params, cfg)), caches

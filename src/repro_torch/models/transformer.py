@@ -1,7 +1,7 @@
 """Decoder layer bodies: the Mamba2 cell (zamba2's backbone), the RWKV6 cell
-(time mix + channel mix), and the GQA block with an MLP or the MoE layer.
-MLA and cross-attention layers are still to port (ROADMAP.md queue 1 item
-10)."""
+(time mix + channel mix), and the attention block (GQA or MLA) with an MLP
+or the MoE layer, and cross-attention to the encoder's output in an
+encoder-decoder stack (whisper)."""
 
 from __future__ import annotations
 
@@ -11,15 +11,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
-from repro_torch.models.layers import (MLP, NOT_PORTED, Norm, Params,
-                                       apply_mlp, apply_norm)
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError(f"the MLA layer {NOT_PORTED}")
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"the cross-attention layer {NOT_PORTED}")
+from repro_torch.models.layers import MLP, Norm, Params, apply_mlp, apply_norm
 
 
 class DecoderLayers(Params):
@@ -28,7 +20,6 @@ class DecoderLayers(Params):
     def __init__(self, cfg: ModelConfig, n_layers: int, gen=None,
                  device=None, moe: bool = False):
         super().__init__()
-        _check_ported(cfg)
         stack = (n_layers,)
         self.norm1 = Norm(cfg, stack, device)
         if cfg.ssm == "rwkv6":
@@ -40,12 +31,16 @@ class DecoderLayers(Params):
             # Hybrid (zamba2): the MLP lives in the shared block.
             self.mamba = ssmlib.Mamba2(cfg, gen, stack, device)
             return
-        self.attn = attn.GQA(cfg, gen, stack, device)
+        self.attn = (attn.MLA if cfg.attention == "mla" else attn.GQA)(
+            cfg, gen, stack, device)
         self.norm2 = Norm(cfg, stack, device)
         if moe:
             self.moe = moelib.MoE(cfg, gen, stack, device)
         else:
             self.mlp = MLP(cfg, gen, stack, device)
+        if cfg.encoder_layers:
+            self.cross_attn = attn.GQA(cfg, gen, stack, device, cross=True)
+            self.norm_cross = Norm(cfg, stack, device)
 
 
 def _rwkv6_layer(params, x, cfg: ModelConfig, *, mode: str, cache):
@@ -73,10 +68,8 @@ def _rwkv6_layer(params, x, cfg: ModelConfig, *, mode: str, cache):
 def decoder_layer(params, x, cfg: ModelConfig, *, moe: bool, mode: str,
                   positions, cache, cache_index, encoder_out=None):
     """Returns (x, new_cache, aux_loss): the MoE router's load-balancing
-    loss, 0.0 for every other layer."""
-    _check_ported(cfg)
-    if encoder_out is not None:
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
+    loss, 0.0 for every other layer.  With ``encoder_out``, a layer that
+    has cross-attention attends to it after its self-attention."""
     if cfg.ssm == "rwkv6":
         x, new_cache = _rwkv6_layer(params, x, cfg, mode=mode, cache=cache)
         return x, new_cache, 0.0
@@ -86,10 +79,16 @@ def decoder_layer(params, x, cfg: ModelConfig, *, moe: bool, mode: str,
             mode=mode, cache=cache)
         return x + h, new_cache, 0.0
 
-    h, new_cache = attn.gqa_forward(
+    h, new_cache = (attn.mla_forward if cfg.attention == "mla"
+                    else attn.gqa_forward)(
         params["attn"], apply_norm(x, params["norm1"], cfg), cfg,
         mode=mode, positions=positions, cache=cache, cache_index=cache_index)
     x = x + h
+    if "cross_attn" in params and encoder_out is not None:
+        h, _ = attn.gqa_forward(
+            params["cross_attn"], apply_norm(x, params["norm_cross"], cfg),
+            cfg, mode="train", kv_source=encoder_out)
+        x = x + h
     aux = 0.0
     if moe:
         h, metrics = moelib.moe_forward(

@@ -9,6 +9,8 @@ held against the same plain versions on the card (``cuda``-marked tests
 here, and ``chip_smoke.py``).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,12 +20,14 @@ from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro.kernels.linear_scan import ref as jscan_ref
 from repro.kernels.linear_scan.ops import linear_scan as jscan
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import check_row_layout
 from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.flash_attention.ref import (attention_blocked_ref,
                                                      attention_ref)
 from repro_torch.kernels.linear_scan import ops as tscan
 from repro_torch.kernels.linear_scan import ref as tscan_ref
+from repro_torch.models import attention as tattn
 
 TOL = 1e-5
 
@@ -483,6 +487,88 @@ def test_flash_attention_wgmma_body_matches_plain(cuda_device, shape, causal):
                  attention_ref(q, k, v, causal=causal)):
         torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
                                    atol=abs_tol)
+
+
+# The serving shapes of the last three LM families, reduced in batch and
+# heads: (name, (b, hq, hkv, seq_q, seq_kv, d), v's head dim, causal).  MLA
+# hands the kernel V zero-padded from v_head_dim to the q/k head dim
+# (deepseek-v2: 128 → 192); whisper's encoder runs non-causal over 1500
+# frames (ragged at 64- and 128-key tiles), its decoder's cross-attention
+# 256 prompt rows and single decode rows against them.
+FAMILY_ATTN_CASES = [
+    ("mla d192, v 128 zero-padded", (1, 4, 4, 300, 300, 192), 128, True),
+    ("encoder s1500 d64", (1, 2, 2, 1500, 1500, 64), 64, False),
+    ("cross q256 kv1500 d64", (1, 2, 2, 256, 1500, 64), 64, False),
+    ("cross q1 kv1500 d64", (2, 2, 2, 1, 1500, 64), 64, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", FAMILY_ATTN_CASES, ids=lambda c: c[0])
+def test_flash_attention_family_shapes_match_plain(cuda_device, case, dtype):
+    """Each body at the new shapes against ``attention_ref`` on the unpadded
+    V: the wgmma body (bf16) within the tolerance of the test above, the
+    f32 body within 1e-5."""
+    _, shape, dv, causal = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
+               for a in _qkv(np.random.default_rng(sum(shape)), *shape))
+    v = v[..., :dv]
+    body = "wgmma" if dtype == "bfloat16" else "f32"
+    before = dict(tflash.flash_attention.launches_by_path)
+    got = tflash.flash_attention(
+        q, k, torch.nn.functional.pad(v, (0, shape[-1] - dv)),
+        causal=causal)[..., :dv]
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches_by_path == \
+        {**before, body: before[body] + 1}
+    want = attention_ref(q, k, v, causal=causal)
+    if body == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2.0 ** -7,
+            atol=2.0 ** -8 * float(v.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_mla_forward_card_matches_cpu(cuda_device):
+    """``mla_forward`` under ``"pallas"`` in float32 at deepseek-v2's smoke
+    size, on the card (the f32 body on the zero-padded V) against the CPU:
+    prefill output and latent caches, then one absorbed decode step,
+    within 1e-4 of each output's largest value (cuBLAS and the kernel sum
+    in another order than the CPU)."""
+    cfg = dataclasses.replace(smoke_config(get_config("deepseek-v2-236b")),
+                              dtype="float32", attention_impl="pallas")
+    cpu = tattn.MLA(cfg, torch.Generator().manual_seed(28), device="cpu")
+    rng = np.random.default_rng(28)
+    b, s, max_len = 2, 70, 72
+    x = torch.from_numpy(rng.standard_normal((b, s, cfg.d_model),
+                                             dtype=np.float32))
+    x1 = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_model),
+                                              dtype=np.float32))
+    pos = torch.full((b, 1), s, dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        params = {n: p.to(dev) for n, p in cpu.named_parameters()}
+        before = dict(tflash.flash_attention.launches_by_path)
+        out, cache = tattn.mla_forward(params, x.to(dev), cfg, mode="prefill")
+        launched = {k: n - before[k] for k, n in
+                    tflash.flash_attention.launches_by_path.items()}
+        assert launched == {"wgmma": 0, "f32": int(dev != "cpu")}
+        dec = tattn.KVCache(*(torch.nn.functional.pad(
+            c, (0, 0, 0, max_len - s)) for c in cache))
+        out1, dec = tattn.mla_forward(params, x1.to(dev), cfg, mode="decode",
+                                      positions=pos.to(dev), cache=dec,
+                                      cache_index=s)
+        outs[str(dev)] = [t.cpu() for t in (out, *cache, out1, *dec)]
+    for name, got, want in zip(("prefill out", "c_kv", "k_rope",
+                                "decode out", "decode c_kv", "decode k_rope"),
+                               outs[str(cuda_device)], outs["cpu"],
+                               strict=True):
+        torch.testing.assert_close(
+            got, want, rtol=0.0, atol=1e-4 * float(want.abs().max()),
+            msg=name)
 
 
 @pytest.mark.cuda

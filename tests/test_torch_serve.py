@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JARCH_NAMES
 from repro.configs import get_config as jget_config
 from repro.configs import smoke_config as jsmoke_config
 from repro.configs.base import count_params as jcount_params
@@ -28,7 +29,7 @@ from repro.models import model as JM
 from repro.models import ssm as jssm
 from repro.models.layers import Param
 from repro_torch import convert
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCH_NAMES, get_config, smoke_config
 from repro_torch.configs.base import ModelConfig, count_params
 from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.linear_scan import ops as tscan
@@ -107,8 +108,9 @@ def test_config_copy_matches_jax():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("deepseek-v2-236b")
+    """Every architecture the JAX package registers is in the port's
+    registry; an unknown name raises."""
+    assert set(ARCH_NAMES) == set(JARCH_NAMES)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
