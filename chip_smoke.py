@@ -188,6 +188,18 @@ Phases, each reported on its own lines:
    then each at 2 full-width float32 layers on the card against the CPU
    (logits, every cache leaf, whisper's encoder output, 4 greedy tokens,
    deepseek's dropped events).
+19. LM training (no kernel on its path: the JAX package trains under
+   ``attention_impl="xla"``, and the LM kernels refuse a gradient): (a)
+   one train step (loss, MoE aux loss and every gradient leaf, float32)
+   of the ten smoke archs and of smollm-135m at full width and 2 of 30
+   layers on the card against the CPU; (b) smollm-135m at full width and
+   depth, bf16 compute, remat, batch 8 x 2048, 100 AdamW steps through
+   ``runtime.trainer.Trainer`` with checkpoints at 50 and 100: the loss
+   must fall; ms a step, tokens/s, peak device memory, no LM kernel
+   launched; a fresh Trainer resumed at step 50 replays steps 50-54
+   (max |dloss|), and a profiler pass over one step; (c) under
+   ``"pallas"`` a train step raises before any launch, and the same call
+   under ``no_grad`` launches.
 
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -220,7 +232,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert, parity  # noqa: E402
 from repro_torch.analysis import scenarios  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, get_config  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import aggregator as agg  # noqa: E402
 from repro_torch.core import fabric as fablib  # noqa: E402
 from repro_torch.core import routing  # noqa: E402
@@ -253,6 +266,9 @@ from repro_torch.snn import training  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.launch import serve_emulation  # noqa: E402
 from repro_torch.runtime import elastic, engine, watchdog  # noqa: E402
+from repro_torch.data import pipeline as lmdata  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import trainer as lmtrainer  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(DEV).multi_processor_count
@@ -3973,8 +3989,7 @@ def moe_drops(params, prompts, cfg, logits) -> list[int]:
             else lm.attnlib.gqa_forward)
     drops = []
     for seg in lm._segments(cfg):
-        for i in range(seg.n_layers):
-            p = params[seg.name].layer(i)
+        for p in params[seg.name].per_layer():
             if not seg.moe:
                 x, _, _ = lm.decoder_layer(p, x, cfg, moe=False, **kw)
                 continue
@@ -4180,6 +4195,190 @@ def phase18(launches: dict, gpu: str) -> None:
         family_card_vs_cpu(arch, "18", CHECK_NEW)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: LM training
+# ---------------------------------------------------------------------------
+
+# A train step on the card against the CPU (float32, TF32 off): the loss
+# and the MoE aux loss within LM_TRAIN_LOSS_TOL relative, each gradient leaf
+# within LM_TRAIN_GRAD_TOL x its largest magnitude on the CPU.
+LM_TRAIN_LOSS_TOL = 1e-4
+LM_TRAIN_GRAD_TOL = 1e-3
+LM_TRAIN_CHECK_SMOKE = (2, 32)       # batch, sequence of the smoke archs
+LM_TRAIN_CHECK_FULL = (2, 128, 2)    # batch, sequence, layers
+LM_TRAIN_ARCH = "smollm-135m"
+LM_TRAIN_STEPS = 100
+LM_TRAIN_WARM = 3                    # steps left out of the median
+LM_TRAIN_DATA = (8, 2048)            # batch, sequence
+LM_TRAIN_CKPT_EVERY = 50             # a fresh Trainer resumes here ...
+LM_TRAIN_REPLAY = 5                  # ... and replays this many steps
+
+
+def lm_train_grads(params, batch: dict, cfg) -> tuple:
+    """(loss, aux, {name: gradient}) of one ``train_loss`` on ``params``'
+    device."""
+    params.requires_grad_(True)
+    dev = params["embed"].device
+    loss, metrics = lm.train_loss(
+        params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+    names, leaves = zip(*params.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return (float(loss.detach()), float(metrics["aux_loss"].detach()),
+            {n: g.detach().cpu() for n, g in zip(names, grads)})
+
+
+def lm_train_card_vs_cpu(cfg, batch_size: int, seq: int) -> str:
+    """One ``train_loss`` and every gradient leaf, card against CPU, on
+    the same parameters (drawn on the card) and the same batch."""
+    card = lm.init_params(torch.Generator(device=DEV).manual_seed(7), cfg,
+                          DEV)
+    cpu = convert.lm_params_from_numpy(
+        {n: p.cpu().numpy() for n, p in card.named_parameters()}, cfg, "cpu")
+    batch = lmdata.synthetic_batch(cfg, lmdata.DataConfig(batch_size, seq),
+                                   0, device="cpu")
+    reset_lm_counts()
+    (l_0, a_0, g_0), (l_1, a_1, g_1) = (lm_train_grads(p, batch, cfg)
+                                        for p in (cpu, card))
+    if any(lm_counts().values()):
+        raise AssertionError(f"{cfg.name}: a train step launched an LM "
+                             f"kernel: {lm_paths()}")
+    errs = {n: float((g_1[n] - g).abs().max())
+            / max(float(g.abs().max()), 1e-30) for n, g in g_0.items()}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(l_1 - l_0) / abs(l_0)
+    aux_err = abs(a_1 - a_0) / max(abs(a_0), 1e-30)
+    finite = all(torch.isfinite(g).all() for g in g_1.values())
+    if not (finite and math.isfinite(l_1) and loss_err <= LM_TRAIN_LOSS_TOL
+            and aux_err <= LM_TRAIN_LOSS_TOL
+            and errs[worst] <= LM_TRAIN_GRAD_TOL):
+        raise AssertionError(f"{cfg.name}: train step, card against CPU: "
+                             f"loss {l_1} vs {l_0}, aux {a_1} vs {a_0}, "
+                             f"worst leaf {worst} {errs[worst]:.3g}")
+    return (f"{cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, batch "
+            f"{batch_size} x {seq}): loss {l_0:.6f}, rel err {loss_err:.2g}, "
+            f"aux {a_0:.5f} rel err {aux_err:.2g}, {len(errs)} leaves, "
+            f"worst {worst} {errs[worst]:.2g} x max|g|")
+
+
+def lm_train_run(gpu: str, tmp: pathlib.Path) -> None:
+    """(b): smollm-135m at full width and depth through ``Trainer``."""
+    cfg = get_config(LM_TRAIN_ARCH)                     # bf16, remat, "xla"
+    tcfg = lmtrainer.TrainerConfig(steps=LM_TRAIN_STEPS,
+                                   ckpt_every=LM_TRAIN_CKPT_EVERY,
+                                   ckpt_dir=str(tmp),
+                                   log_every=LM_TRAIN_STEPS)
+    dcfg = lmdata.DataConfig(*LM_TRAIN_DATA)
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=10,
+                            total_steps=LM_TRAIN_STEPS)
+    trainer = lmtrainer.Trainer(cfg, tcfg, dcfg, opt, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if any(lm_counts().values()):
+        raise AssertionError(f"training launched an LM kernel: {lm_paths()}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses: {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"training did not reduce the loss: {losses}")
+    step_s = float(np.median([h["step_time_s"]
+                              for h in hist[LM_TRAIN_WARM:]]))
+    tokens = LM_TRAIN_DATA[0] * LM_TRAIN_DATA[1]
+    print(f"phase 19: {LM_TRAIN_ARCH} training at full width and depth "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.dtype} compute, "
+          f"remat {cfg.remat}, attention {cfg.attention_impl}), batch "
+          f"{LM_TRAIN_DATA[0]} x {LM_TRAIN_DATA[1]}, AdamW lr {opt.lr}, "
+          f"warm-up {opt.warmup_steps}: {LM_TRAIN_STEPS} steps in "
+          f"{wall:.1f} s (checkpoints at {LM_TRAIN_CKPT_EVERY} and "
+          f"{LM_TRAIN_STEPS} included), "
+          f"{step_s * 1e3:.1f} ms a step (median after {LM_TRAIN_WARM}; min "
+          f"{min(h['step_time_s'] for h in hist) * 1e3:.1f}, step 0 "
+          f"{hist[0]['step_time_s'] * 1e3:.1f}), {tokens / step_s:.0f} "
+          f"tokens/s, peak device memory {peak / 2 ** 30:.2f} GiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+          f"{first:.4f}, last 5 {last:.4f}), grad norm "
+          f"{hist[-1]['grad_norm']:.3f}; no LM kernel launched [{gpu}]",
+          flush=True)
+
+    # Resume at step 50 in a fresh Trainer and replay steps 50-54.
+    fresh = lmtrainer.Trainer(cfg, tcfg, dcfg, opt, device=DEV)
+    if not fresh.try_resume(step=LM_TRAIN_CKPT_EVERY):
+        raise AssertionError("no checkpoint at step 50")
+    replay = fresh.run(LM_TRAIN_CKPT_EVERY + LM_TRAIN_REPLAY)
+    delta = [abs(h["loss"] - losses[h["step"]]) for h in replay]
+    if len(delta) != LM_TRAIN_REPLAY or max(delta) > 1e-2:
+        raise AssertionError(f"replay of steps 50-54: |dloss| {delta}")
+    print(f"phase 19: a fresh Trainer resumed at step {LM_TRAIN_CKPT_EVERY} "
+          f"replays steps {LM_TRAIN_CKPT_EVERY}-"
+          f"{LM_TRAIN_CKPT_EVERY + LM_TRAIN_REPLAY - 1}: max |dloss| "
+          f"{max(delta):.3g} ({sum(d == 0 for d in delta)} of "
+          f"{LM_TRAIN_REPLAY} equal bit for bit; checkpoint "
+          f"{ckpt_mb(str(tmp), LM_TRAIN_CKPT_EVERY):.0f} MB) [{gpu}]",
+          flush=True)
+    batch = lmdata.synthetic_batch(cfg, dcfg, LM_TRAIN_STEPS, device=DEV)
+    print(f"phase 19: {LM_TRAIN_ARCH} train step: " + device_breakdown(
+        lambda: fresh.train_step(fresh.params, fresh.opt_state, batch),
+        per=1, unit="train step", ours=("gemm", "softmax", "elementwise"))
+        + f" [{gpu}]", flush=True)
+
+
+def lm_train_refusal(gpu: str) -> None:
+    """(c): under ``"pallas"`` a train step raises on the card, before any
+    launch; without a gradient the same call launches the kernels."""
+    for arch in ("smollm-135m", "zamba2-7b", "rwkv6-7b"):
+        cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                                  attention_impl="pallas")
+        params = lm.init_params(torch.Generator(device=DEV).manual_seed(1),
+                                cfg, DEV).requires_grad_(True)
+        batch = lmdata.synthetic_batch(cfg, lmdata.DataConfig(2, 64), 0,
+                                       device=DEV)
+        reset_lm_counts()
+        try:
+            lm.train_loss(params, batch, cfg)
+        except TypeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"{arch}: train_loss under 'pallas' did "
+                                 f"not refuse a gradient")
+        if any(lm_counts().values()):
+            raise AssertionError(f"{arch}: launched before refusing")
+        with torch.no_grad():
+            loss, _ = lm.train_loss(params, batch, cfg)
+        if not (math.isfinite(float(loss)) and any(lm_counts().values())):
+            raise AssertionError(f"{arch}: the no-grad call did not launch")
+        print(f"phase 19: {arch} (smoke) under 'pallas': with a gradient "
+              f"raises ({refused.split(':')[0]}), no launch; under "
+              f"no_grad loss {float(loss):.4f} with launches {lm_paths()} "
+              f"[{gpu}]", flush=True)
+
+
+def phase19(launches: dict, gpu: str) -> None:
+    import tempfile
+
+    for arch in ARCH_NAMES:
+        cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                                  dtype="float32")
+        print(f"phase 19: card against CPU, "
+              f"{lm_train_card_vs_cpu(cfg, *LM_TRAIN_CHECK_SMOKE)} [{gpu}]",
+              flush=True)
+    batch_size, seq, layers = LM_TRAIN_CHECK_FULL
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), n_layers=layers,
+                              dtype="float32")
+    print(f"phase 19: card against CPU, "
+          f"{lm_train_card_vs_cpu(cfg, batch_size, seq)} [{gpu}]",
+          flush=True)
+    CKPT_ROOT.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CKPT_ROOT, prefix="phase19-") as tmp:
+        lm_train_run(gpu, pathlib.Path(tmp))
+    lm_train_refusal(gpu)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -4223,6 +4422,7 @@ def main() -> None:
     timed_phase("16", lambda: phase16(launches, gpu))
     timed_phase("17", lambda: phase17(launches, gpu))
     timed_phase("18", lambda: phase18(launches, gpu))
+    timed_phase("19", lambda: phase19(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

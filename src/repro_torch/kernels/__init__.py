@@ -11,6 +11,7 @@ Each kernel directory holds:
 Dispatch rule: a wrapper runs the plain version when its tensors lie on the
 CPU and launches the kernel when they lie on a CUDA device.  There is no
 switch and no fallback: on a CUDA tensor the kernel runs or the call raises.
+The LM kernels have no backward (``refuse_autograd``), on either device.
 """
 
 from __future__ import annotations
@@ -44,6 +45,23 @@ def on_card(*tensors: torch.Tensor | None) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain version for device {device}")
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise if a call would need a gradient through kernel ``name``: grad
+    mode is on and an operand requires grad.  The JAX package's Pallas
+    kernels have no backward (its ``value_and_grad`` through them fails),
+    and a ``ctypes`` launch would give an output without ``grad_fn``, so
+    the gradient would be cut off without an error.  The plain version
+    could differentiate on the CPU, but then one call would give another
+    result on each device: both refuse.  Train under
+    ``attention_impl="xla"``, as the JAX package does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise TypeError(
+            f"{name} has no backward: the JAX package's kernel has none "
+            f"(ROADMAP.md queue 3); train with "
+            f"attention_impl='xla' or call it under torch.no_grad()")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -11,8 +11,10 @@ kernel has two bodies, picked by ``body_for``:
   P in float32.
 
 This is a dispatch by type, not a fallback: a bf16 call whose tensor-core
-launch fails raises.  Each launch counts in ``flash_attention.launches``
-and in ``flash_attention.launches_by_path[body]``.
+launch fails raises.  A call that would need a gradient raises on either
+device (``kernels.refuse_autograd``).  Each launch counts in
+``flash_attention.launches`` and in
+``flash_attention.launches_by_path[body]``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import math
 import torch
 
 from repro_torch.kernels import (FLOAT, INT, PTR, check, check_row_layout,
-                                 dtype_code, launcher, on_card, stream)
+                                 dtype_code, launcher, on_card,
+                                 refuse_autograd, stream)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 BLOCK_Q = BLOCK_KV = 64          # the f32 body's tiles
@@ -91,6 +94,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "use the decode path for single-token queries")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    refuse_autograd("flash_attention", q, k, v)
     if not on_card(q, k, v):
         return attention_ref(q, k, v, sm_scale=sm_scale, causal=causal)
     if d % 8 or d > MAX_HEAD_DIM:

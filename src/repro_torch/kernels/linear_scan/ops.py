@@ -19,8 +19,9 @@ picked by ``body_for``:
   the per-channel chunk form on the CUDA cores, both modes.
 
 This is a dispatch by the operands, not a fallback: a tensor-core call
-whose launch fails raises.  Each launch counts in ``linear_scan.launches``
-and in ``linear_scan.launches_by_path[body]``.
+whose launch fails raises.  A call that would need a gradient raises on
+either device (``kernels.refuse_autograd``).  Each launch counts in
+``linear_scan.launches`` and in ``linear_scan.launches_by_path[body]``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from repro_torch.kernels import (INT, PTR, check, check_row_layout,
                                  dtype_code, launcher, on_card,
-                                 row_layout_ok, stream)
+                                 refuse_autograd, row_layout_ok, stream)
 from repro_torch.kernels.linear_scan.ref import linear_scan_chunked
 
 DEFAULT_CHUNK = 64
@@ -95,6 +96,7 @@ def linear_scan(q, k, v, w, u=None, *, mode: str = "inclusive",
     if u is not None and tuple(u.shape) != (heads, kdim):
         raise ValueError(f"u must be [{heads}, {kdim}], got {tuple(u.shape)}")
     chunk = chunk_for(t, chunk)
+    refuse_autograd("linear_scan", q, k, v, w, u)
     if not on_card(q, k, v, w, u):
         return linear_scan_chunked(q, k, v, w, u, mode=mode,
                                    chunk=chunk).to(q.dtype)

@@ -81,9 +81,11 @@ def linear_scan_chunked(q, k, v, w, u=None, *, mode: str = "inclusive",
         y = torch.einsum("bhck,bhkv->bhcv", qc * torch.exp(beta), h)
         # intra-chunk: exact broadcast.  Valid (s ≤ t) exponents are ≤ 0;
         # masked ones can overflow, so clamp before exp (exact for valid).
+        # ``minimum`` splits the gradient at a tie, as ``jnp.minimum``
+        # does; ``torch.clamp`` would pass all of it.
         expo = beta[:, :, :, None, :] - b[:, :, None, :, :]   # [B,H,C,C,K]
         a = (qc[:, :, :, None, :] * kc[:, :, None, :, :]
-             * torch.exp(torch.clamp(expo, max=0.0))).sum(-1)
+             * torch.exp(torch.minimum(expo, expo.new_zeros(())))).sum(-1)
         a = torch.where(mask, a, 0.0)
         y = y + torch.einsum("bhts,bhsv->bhtv", a, vc)
         if strict:

@@ -5,9 +5,9 @@ tree's paths (``layers.mamba.in_proj``, ``shared_attn.wq``, ``embed``), so
 ``state_dict()`` keys are those paths and ``convert`` can load a flattened
 JAX tree one to one.  A module built with ``stack=(L,)`` holds L layers'
 parameters with a leading layer axis, as the JAX package's scanned stacks
-do; ``Params.layer(i)`` gives layer i's as a nested dict of views.  The
-forward functions take any mapping of name → tensor (a module or such a
-dict), like the JAX functions take a dict of ``Param``s.
+do; ``Params.per_layer()`` gives each layer's as a nested dict of views.
+The forward functions take any mapping of name → tensor (a module or such
+a dict), like the JAX functions take a dict of ``Param``s.
 
 Parameters are float32 and are cast to the activation dtype at use, as
 ``x @ w.astype(dt)`` does in JAX.  The JAX package's logical-axis
@@ -41,11 +41,18 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
-    def layer(self, i: int) -> dict:
-        """Layer i of a stacked module: a nested dict of views."""
-        out = {name: p[i] for name, p in self._parameters.items()}
-        out.update({name: m.layer(i) for name, m in self._modules.items()})
-        return out
+    def per_layer(self) -> list[dict]:
+        """Every layer of a stacked module, each a nested dict of views,
+        from one ``unbind(0)`` per stacked tensor.  (Under autograd a
+        ``p[i]`` view's backward would write a zero gradient of the whole
+        stack, L of them for L layers; ``unbind``'s stacks the L layer
+        gradients once.)"""
+        parts = {name: p.unbind(0) for name, p in self._parameters.items()}
+        parts.update({name: m.per_layer()
+                      for name, m in self._modules.items()})
+        n = len(next(iter(parts.values())))
+        return [{name: part[i] for name, part in parts.items()}
+                for i in range(n)]
 
 
 def new_param(gen: torch.Generator | None, shape, device, *,
@@ -182,3 +189,15 @@ def logits_from_hidden(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     if w.shape[0] != h.shape[-1]:          # [vocab, d]
         w = w.T
     return h.float() @ w.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits`` [...,
+    vocab]; with ``mask`` the mean over its weight (at least 1)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,4 +1,4 @@
-"""Model top level: init / prefill / decode for every registered arch.
+"""Model top level: init / train loss / prefill / decode for every arch.
 
 The stacks: zamba2's hybrid stack (Mamba2 layers with one shared attention
 + MLP block applied every ``attn_every`` layers), RWKV6's attention-free
@@ -8,24 +8,29 @@ encoder-decoder (a bidirectional encoder over frame embeddings, decoder
 layers with cross-attention to its output).  Embeddings-input archs
 (llava) take ``embeds`` in place of tokens.  Where the JAX package scans
 over a stacked layer axis, the port loops over it in Python; parameters
-and caches keep the stacked layout.  Training is still to port (ROADMAP.md
-queue 1 item 10).
+and caches keep the stacked layout, and a stack is taken apart once a call
+(``Params.per_layer``).  Training runs ``train_loss`` under ``torch.autograd``
+with per-layer remat where the JAX package has it; the sharded LM path is
+still to port (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attnlib
 from repro_torch.models import ssm as ssmlib
 from repro_torch.models.layers import (MLP, Norm, Params, apply_mlp,
-                                       apply_norm, dtype_of, embed_tokens,
-                                       init_embedding, logits_from_hidden)
+                                       apply_norm, cross_entropy, dtype_of,
+                                       embed_tokens, init_embedding,
+                                       logits_from_hidden)
 from repro_torch.models.transformer import DecoderLayers, decoder_layer
 
 
@@ -118,17 +123,32 @@ def _stacked(new_caches: list):
     return type(new_caches[0])(*(torch.stack(cs) for cs in zip(*new_caches)))
 
 
-def _run_layer(layers: Params, i: int, x, cfg, caches, new, *, mode,
-               positions, cache_index, moe: bool = False, encoder_out=None):
+def _remat(fn, on: bool):
+    """``fn``, recomputed in the backward pass instead of keeping its
+    activations (the JAX package's ``jax.checkpoint``) when ``on`` and grad
+    mode is on; as it is otherwise."""
+    if not (on and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _run_layer(lp: dict, i: int, x, cfg, caches, new, *, mode, positions,
+               cache_index, moe: bool = False, encoder_out=None,
+               remat: bool = False):
+    """Decoder layer i (parameters ``lp``); returns (x, its aux loss)."""
     cache = _layer_cache(caches, i)
-    x, nc, _ = decoder_layer(layers.layer(i), x, cfg, moe=moe, mode=mode,
+
+    def body(x):
+        return decoder_layer(lp, x, cfg, moe=moe, mode=mode,
                              positions=positions, cache=cache,
                              cache_index=cache_index, encoder_out=encoder_out)
+
+    x, nc, aux = _remat(body, remat)(x)
     if mode == "decode" and nc is not cache:  # KV caches are written in place
         _store(caches, i, nc)
     elif mode == "prefill":
         new.append(nc)
-    return x
+    return x, aux
 
 
 def _zamba_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
@@ -136,25 +156,34 @@ def _zamba_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
     """Mamba backbone with the shared attention + MLP block after every
     ``attn_every`` layers (zamba2), then the remaining tail layers.  The
     shared block's parameters are one set reused by every application; its
-    KV caches are per application."""
+    KV caches are per application.  In train mode with ``cfg.remat`` each
+    group (its layers and the shared block) is recomputed in the backward
+    pass, as the JAX package's scan body is."""
     per = cfg.attn_every
     groups = cfg.n_layers // per
-    layers = params["layers"]
+    layers = params["layers"].per_layer()
     mamba_caches, attn_caches = caches if caches is not None else (None, None)
     new_mamba, new_attn = [], []
     kw = dict(mode=mode, positions=positions, cache_index=cache_index)
-    for g in range(groups):
+
+    def group(x, g):
         for i in range(g * per, (g + 1) * per):
-            x = _run_layer(layers, i, x, cfg, mamba_caches, new_mamba, **kw)
+            x, _ = _run_layer(layers[i], i, x, cfg, mamba_caches, new_mamba,
+                              **kw)
         h, a_cache = attnlib.gqa_forward(
             params["shared_attn"], apply_norm(x, params["shared_norm1"], cfg),
             cfg, cache=_layer_cache(attn_caches, g), **kw)
         x = x + h
         x = x + apply_mlp(apply_norm(x, params["shared_norm2"], cfg),
                           params["shared_mlp"], cfg)
+        return x, a_cache
+
+    for g in range(groups):
+        x, a_cache = _remat(functools.partial(group, g=g),
+                            cfg.remat and mode == "train")(x)
         new_attn.append(a_cache)
     for i in range(groups * per, cfg.n_layers):
-        x = _run_layer(layers, i, x, cfg, mamba_caches, new_mamba, **kw)
+        x, _ = _run_layer(layers[i], i, x, cfg, mamba_caches, new_mamba, **kw)
     if mode == "prefill":
         return x, (_stacked(new_mamba), _stacked(new_attn))
     return x, caches
@@ -173,39 +202,49 @@ def _encoder_stack(params, x, cfg: ModelConfig):
     cross-attention path (kv_source = normed x → no causal mask, no rope)."""
     x = x + _sinusoidal_positions(x.shape[1], x.shape[-1],
                                   x.device).to(x.dtype)
-    layers = params["encoder"]
-    for i in range(cfg.encoder_layers):
-        lp = layers.layer(i)
+
+    def body(x, lp):
         normed = apply_norm(x, lp["norm1"], cfg)
         h, _ = attnlib.gqa_forward(lp["attn"], normed, cfg, mode="train",
                                    kv_source=normed)
         x = x + h
-        x = x + apply_mlp(apply_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+        return x + apply_mlp(apply_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+
+    for lp in params["encoder"].per_layer():
+        x = _remat(body, cfg.remat)(x, lp)
     return apply_norm(x, params["encoder_norm"], cfg)
 
 
 def apply_stack(params, x, cfg: ModelConfig, *, mode: str, positions,
                 caches, cache_index, encoder_out=None):
     """Run the decoder stack, each layer attending to ``encoder_out`` where
-    it has cross-attention.  Returns (x, caches): prefill's new stacked
-    caches, decode's ``caches`` updated in place, or None in train mode."""
+    it has cross-attention.  Returns (x, caches, aux): prefill's new
+    stacked caches, decode's ``caches`` updated in place, or None in train
+    mode; and the MoE layers' load-balancing loss summed over the stack
+    (float32, 0 without MoE).  In train mode with ``cfg.remat`` each
+    decoder layer is recomputed in the backward pass."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.attn_every:
-        return _zamba_stack(params, x, cfg, mode=mode, positions=positions,
-                            caches=caches, cache_index=cache_index)
+        x, caches = _zamba_stack(params, x, cfg, mode=mode,
+                                 positions=positions, caches=caches,
+                                 cache_index=cache_index)
+        return x, caches, aux
     new_caches = {}
     for seg in _segments(cfg):
         seg_caches = None if caches is None else caches[seg.name]
         new = []
-        for i in range(seg.n_layers):
-            x = _run_layer(params[seg.name], i, x, cfg, seg_caches, new,
-                           mode=mode, positions=positions,
-                           cache_index=cache_index, moe=seg.moe,
-                           encoder_out=encoder_out)
+        for i, lp in enumerate(params[seg.name].per_layer()):
+            x, layer_aux = _run_layer(
+                lp, i, x, cfg, seg_caches, new, mode=mode,
+                positions=positions, cache_index=cache_index, moe=seg.moe,
+                encoder_out=encoder_out, remat=cfg.remat and mode == "train")
+            if seg.moe:
+                aux = aux + layer_aux
         if mode == "prefill":
             new_caches[seg.name] = _stacked(new)
     if mode == "decode":
-        return x, caches
-    return x, (new_caches or None)
+        return x, caches, aux
+    return x, (new_caches or None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +298,46 @@ def _head(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
+def _inputs_to_hidden(params, batch: dict, cfg: ModelConfig):
+    """(x, labels): ``embeds`` and their ``labels`` (None if absent) for an
+    embeddings-input arch, else the embedded ``tokens[:, :-1]`` and
+    ``tokens[:, 1:]``."""
+    if cfg.input_mode == "embeddings":
+        return batch["embeds"].to(dtype_of(cfg.dtype)), batch.get("labels")
+    tokens = batch["tokens"]
+    return embed_tokens(tokens[:, :-1], params["embed"], cfg), tokens[:, 1:]
+
+
+def train_loss(params, batch: dict, cfg: ModelConfig):
+    """The training objective: cross-entropy of the next token plus 0.01 x
+    the MoE load-balancing loss.  The encoder-decoder's decoder reads
+    ``tokens[:, :-1]`` against the encoder's output over ``embeds``.
+
+    Returns (loss, {"ce_loss", "aux_loss"}), float32 scalars.  Gradients
+    come from ``torch.autograd``; under ``attention_impl="pallas"`` the
+    kernels refuse them (``kernels.refuse_autograd``), as the JAX
+    package's do.
+    """
+    encoder_out = None
+    if cfg.encoder_layers:
+        encoder_out = _encoder_stack(
+            params, batch["embeds"].to(dtype_of(cfg.dtype)), cfg)
+        tokens = batch["tokens"]
+        x = embed_tokens(tokens[:, :-1], params["embed"], cfg)
+        labels = tokens[:, 1:]
+    else:
+        x, labels = _inputs_to_hidden(params, batch, cfg)
+    if labels is None:
+        raise ValueError("training batch needs labels")
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, _, aux = apply_stack(params, x, cfg, mode="train", positions=positions,
+                            caches=None, cache_index=None,
+                            encoder_out=encoder_out)
+    x = apply_norm(x, params["final_norm"], cfg)
+    loss = cross_entropy(logits_from_hidden(x, _head(params, cfg)), labels)
+    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
+
+
 @torch.no_grad()
 def prefill(params, batch: dict, cfg: ModelConfig):
     """Full-sequence forward building the decode cache.
@@ -279,7 +358,7 @@ def prefill(params, batch: dict, cfg: ModelConfig):
     else:
         x = embed_tokens(batch["tokens"], params["embed"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, caches = apply_stack(params, x, cfg, mode="prefill",
+    x, caches, _ = apply_stack(params, x, cfg, mode="prefill",
                             positions=positions, caches=None, cache_index=None,
                             encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)
@@ -304,7 +383,7 @@ def decode_step(params, tokens, caches, cache_index: int, cfg: ModelConfig,
         x = embed_tokens(tokens[:, None], params["embed"], cfg)
     positions = torch.full((x.shape[0], 1), cache_index, dtype=torch.int32,
                            device=x.device)
-    x, caches = apply_stack(params, x, cfg, mode="decode",
+    x, caches, _ = apply_stack(params, x, cfg, mode="decode",
                             positions=positions, caches=caches,
                             cache_index=cache_index, encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)

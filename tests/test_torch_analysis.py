@@ -45,6 +45,9 @@ from repro_torch.core import fabric as tfab
 from repro_torch.kernels.spike_router.ref import (pack_indices,
                                                   pack_segmented_indices)
 from repro_torch.parallel.spawn import run_ranks
+from torch_threads import share_cores
+
+share_cores()
 
 J_SCENARIOS = {sc.name: sc for sc in jsc.benchmark_plans()}
 T_SCENARIOS = {sc.name: sc for sc in tsc.benchmark_plans()}

@@ -54,6 +54,9 @@ from repro_torch.snn.plasticity import STDPConfig
 from test_torch_plasticity import stream_case, stream_inputs
 from test_torch_stream import BATCH as XBATCH
 from test_torch_stream import flatten
+from torch_threads import share_cores
+
+share_cores()
 
 CPU = "cpu"
 

@@ -34,6 +34,9 @@ from repro_torch.snn import neuron as tnrn
 from repro_torch.snn import plasticity as tplas
 from repro_torch.snn import stream as tstream
 from test_torch_stream import BATCH, SMALL_CHIP, flatten
+from torch_threads import share_cores
+
+share_cores()
 
 STEPS = 8
 N_CHIPS = 3

@@ -39,6 +39,9 @@ from repro_torch.snn.plasticity import STDPConfig
 from test_torch_checkpoint import assert_trees_equal
 from test_torch_plasticity import stream_case, stream_inputs
 from test_torch_stream import BATCH, flatten
+from torch_threads import share_cores
+
+share_cores()
 
 CPU = "cpu"
 DEADLINE_S, STALL_S = 0.2, 0.4

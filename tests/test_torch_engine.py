@@ -42,6 +42,9 @@ from repro_torch.snn import network as netlib
 from repro_torch.snn import stream as stlib
 from repro_torch.snn.plasticity import STDPConfig
 from test_torch_stream import flatten
+from torch_threads import share_cores
+
+share_cores()
 
 CPU = "cpu"
 CHIP = dict(n_neurons=24, n_rows=12)

@@ -41,6 +41,9 @@ from repro_torch.snn import network as tnet
 from test_torch_fabric import _tables as tables
 from test_torch_faults import Spy
 from test_torch_stream import BATCH, SMALL_CHIP, STEPS, flatten
+from torch_threads import share_cores
+
+share_cores()
 
 CATALOGUE = [c[0] for c in tsc.CASES]
 FRAME_FIELDS = ("labels", "times", "valid")

@@ -29,6 +29,9 @@ from repro_torch.core.events import EventFrame as TFrame
 from repro_torch.core.latency import LatencyParams as TLatency
 from repro_torch.core.latency import timed_wire as t_timed_wire
 from repro_torch.core.link import LinkConfig as TLink
+from torch_threads import share_cores
+
+share_cores()
 
 SCENARIOS = [s.name for s in jsc.benchmark_plans()]
 

@@ -46,6 +46,9 @@ from repro_torch.snn import network as tnet
 from repro_torch.snn import stream as tstream
 from test_torch_fabric import _tables as tables
 from test_torch_stream import BATCH, SMALL_CHIP, STEPS, flatten
+from torch_threads import share_cores
+
+share_cores()
 
 # (level, edge, kill_step, restore_step, kind), on EXT_4CASE_96CHIP's edge
 # counts 96/8/4, over STEPS steps.

@@ -31,6 +31,9 @@ from repro_torch.core import routing as trt
 from repro_torch.core.latency import timed_wire as t_timed_wire
 from repro_torch.kernels.spike_router import ops as tops
 from repro_torch.kernels.spike_router import ref as tref
+from torch_threads import share_cores
+
+share_cores()
 
 CPU = torch.device("cpu")
 

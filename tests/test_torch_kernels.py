@@ -27,6 +27,9 @@ from repro_torch.core import link as tlink
 from repro_torch.core import routing as trt
 from repro_torch.kernels.spike_router import ops as tops
 from repro_torch.kernels.spike_router import ref as tref
+from torch_threads import share_cores
+
+share_cores()
 
 CAPACITY = 16
 

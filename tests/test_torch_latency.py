@@ -23,6 +23,9 @@ from repro.core import interconnect as jic
 from repro.core import latency as jlat
 from repro_torch.core import interconnect as tic
 from repro_torch.core import latency as tlat
+from torch_threads import share_cores
+
+share_cores()
 
 RATES_HZ = (1e6, 5e6, 10e6, 25e6, 50e6, 70e6, 80e6, 83.3e6)
 # Reduced from the paper's 2^15 (chip_smoke.py phase 11 runs 2^15 on the

@@ -24,6 +24,9 @@ from repro.snn import neuron as jnrn
 from repro_torch.kernels.lif_step import ops as tops
 from repro_torch.kernels.lif_step import ref as tref
 from repro_torch.snn import neuron as tnrn
+from torch_threads import share_cores
+
+share_cores()
 
 TOL = 1e-6
 LIF_SHAPES = [(8, 128), (5, 300), (16, 512), (1, 64)]

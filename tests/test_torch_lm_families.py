@@ -46,6 +46,9 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from test_torch_serve import (BF16_LOGIT_TOL, CACHE_TOL, LOGIT_TOL, _close,
                               _t, flatten)
+from torch_threads import share_cores
+
+share_cores()
 
 KEY = jax.random.key(11)
 ARCHS = ("rwkv6-7b", "smollm-135m", "phi3-medium-14b", "gemma-7b",

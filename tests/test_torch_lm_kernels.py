@@ -28,6 +28,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_blocked_ref,
 from repro_torch.kernels.linear_scan import ops as tscan
 from repro_torch.kernels.linear_scan import ref as tscan_ref
 from repro_torch.models import attention as tattn
+from torch_threads import share_cores
+
+share_cores()
 
 TOL = 1e-5
 

@@ -38,6 +38,9 @@ from repro_torch.models import model as TM
 from test_torch_lm_families import _cache_leaves, _params, configs
 from test_torch_serve import (BF16_LOGIT_TOL, CACHE_TOL, KEY, LOGIT_TOL,
                               _close, _t, flatten)
+from torch_threads import share_cores
+
+share_cores()
 
 ARCHS = ("deepseek-v2-236b", "whisper-medium", "llava-next-mistral-7b")
 IMPLS = ("xla", "pallas")

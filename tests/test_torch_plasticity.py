@@ -46,6 +46,9 @@ from repro_torch.snn import stream as tstream
 from test_torch_stream import BATCH, SMALL_CHIP, STEPS, flatten
 from test_torch_stream_options import FIELDS as OUT_FIELDS
 from test_torch_stream_options import assert_same_run as assert_same_outputs
+from torch_threads import share_cores
+
+share_cores()
 
 STATE_FIELDS = ("trace_pre", "trace_post", "weights")
 CONFIGS = {"default": (jplas.STDPConfig(), tplas.STDPConfig()),

@@ -38,6 +38,9 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as tssm
+from torch_threads import share_cores
+
+share_cores()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KEY = jax.random.key(7)

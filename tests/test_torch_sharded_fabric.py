@@ -36,6 +36,9 @@ from repro_torch.core.events import EventFrame as TFrame
 from repro_torch.core.latency import timed_wire as ttimed
 from repro_torch.parallel import sharding as tshard
 from repro_torch.parallel.spawn import run_ranks
+from torch_threads import share_cores
+
+share_cores()
 
 SEED = 24
 CASES = sc.fabric_cases()

@@ -27,6 +27,9 @@ from repro_torch.core import sync as tsync
 from repro_torch.core.events import EventFrame as TFrame
 from repro_torch.parallel import collectives as tcoll
 from repro_torch.parallel.spawn import run_ranks
+from torch_threads import share_cores
+
+share_cores()
 
 SEED = 31
 STREAMED = [name for name, case in sc.STAR_CASES.items() if case[4]]

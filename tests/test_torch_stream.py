@@ -42,6 +42,9 @@ from repro_torch.snn import chip as tchip
 from repro_torch.snn import network as tnet
 from repro_torch.snn import neuron as tnrn
 from repro_torch.snn import stream as tstream
+from torch_threads import share_cores
+
+share_cores()
 
 SMALL_CHIP = dict(n_neurons=64, n_rows=32)
 BATCH, STEPS = 2, 8

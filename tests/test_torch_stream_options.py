@@ -37,6 +37,9 @@ from repro_torch.snn import chip as tchip
 from repro_torch.snn import network as tnet
 from repro_torch.snn import stream as tstream
 from test_torch_stream import BATCH, SMALL_CHIP, flatten
+from torch_threads import share_cores
+
+share_cores()
 
 FIELDS = ("spikes", "dropped", "uplink_dropped", "latency_ns",
           "latency_valid", "unroutable", "rerouted")

@@ -9,6 +9,9 @@ import torch
 from repro.core import sync as jsync
 from repro_torch import core as tcore
 from repro_torch.core import sync as tsync
+from torch_threads import share_cores
+
+share_cores()
 
 CONFIGS = [(jsync.SyncConfig(), tsync.SyncConfig()),
            (jsync.SyncConfig(n_participants=4, timeout_cycles=1000,

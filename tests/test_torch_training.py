@@ -32,6 +32,9 @@ from repro_torch.snn import encoding as tenc
 from repro_torch.snn import network as tnet
 from repro_torch.snn import training as ttr
 from test_torch_stream import flatten
+from torch_threads import share_cores
+
+share_cores()
 
 LOSS_RTOL = 1e-6
 GRAD_TOL = 1e-5          # × max|g|

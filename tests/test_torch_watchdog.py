@@ -18,6 +18,9 @@ from repro.runtime import watchdog as jwd
 from repro_torch.core.sync import SYSTEM_CLOCK_NS, SyncConfig
 from repro_torch.runtime import watchdog as twd
 from repro_torch.runtime.watchdog import StepWatchdog, WatchdogConfig
+from torch_threads import share_cores
+
+share_cores()
 
 # ---------------------------------------------------------------------------
 # config construction
