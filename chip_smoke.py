@@ -200,6 +200,25 @@ Phases, each reported on its own lines:
    (max |dloss|), and a profiler pass over one step; (c) under
    ``"pallas"`` a train step raises before any launch, and the same call
    under ``no_grad`` launches.
+20. The LM shardings (no kernel on their path): (a) gradient compression
+   at full width, smollm-135m's gradient leaves from a seed:
+   ``compress_with_feedback`` for 4 rounds at frac 0.01 and
+   ``quantize_int8``, the card against the CPU bit for bit (indices,
+   values, residuals, int8 codes), ms a round; (b) the sharded train step
+   (``make_train_step(mesh=)``, DTensor) on one rank and a 1 x 1 mesh,
+   smollm-135m at full width and depth, bf16, remat, batch 8 x 2048, 10
+   steps in turns with 10 of phase 19's plain step from the same state:
+   ms a step and tokens/s of both, the losses equal within 1e-6 relative
+   (else the first op that differs is named), and a ``FlopCounterMode``
+   count of the plain step; then 4 gloo ranks on a 2 x 2 mesh, smollm-135m
+   at full width and 2 layers, float32: the loss within 1e-4 relative and
+   every parameter after one step within 1e-5 x max|p| of the one-rank
+   step (``SHARD_GROUP_DEVICE`` says where those ranks run); (c) the dry
+   run (``python -m repro_torch.launch.dryrun``, a fake group of 256 ranks
+   in a subprocess) of smollm-135m and qwen3-8b at train_4k on 16 x 16:
+   each roofline row and its wall time; then the roofline of (b)'s shape
+   on a 1 x 1 mesh, its flops equal to (b)'s count, its ``bound_s``
+   beside the measured ms a step.
 
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -269,6 +288,7 @@ from repro_torch.runtime import elastic, engine, watchdog  # noqa: E402
 from repro_torch.data import pipeline as lmdata  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import trainer as lmtrainer  # noqa: E402
+from repro_torch.parallel import compression  # noqa: E402
 
 DEV = torch.device("cuda")
 SMS = torch.cuda.get_device_properties(DEV).multi_processor_count
@@ -4379,6 +4399,392 @@ def phase19(launches: dict, gpu: str) -> None:
     lm_train_refusal(gpu)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the LM shardings
+# ---------------------------------------------------------------------------
+
+COMPRESS_ROUNDS, COMPRESS_FRAC = 4, 0.01
+SHARD_TURNS = 10                     # DTensor and plain steps, in turns
+SHARD_LOSS_TOL = 1e-6                # relative: a 1 x 1 mesh runs the same ops
+SHARD_GROUP_MESH = (2, 2)
+SHARD_GROUP_DATA = (4, 256, 2)       # batch, sequence, layers
+SHARD_GROUP_LOSS_TOL = 1e-4          # relative
+SHARD_GROUP_PARAM_TOL = 1e-5         # x max|p| of each leaf
+# Where the 4 ranks of (b) run: NCCL takes one card per rank, so ranks
+# that share the card are gloo's, and gloo does not carry every collective
+# DTensor issues for CUDA tensors: scripts/gloo_cuda_probe.py on the card
+# (NVIDIA H100 80GB HBM3, torch 2.11.0+cu128) found all-gather killing a
+# rank (SIGSEGV) while reduce-scatter, all-reduce and all-to-all passed.
+# So the ranks run on the CPU.
+SHARD_GROUP_DEVICE = "cpu"
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("qwen3-8b", "train_4k"))
+
+
+def compression_round(grads: dict, states: dict) -> tuple[dict, dict]:
+    """One ``compress_with_feedback`` round over every leaf."""
+    frames, new = {}, {}
+    for name, g in grads.items():
+        frames[name], new[name] = compression.compress_with_feedback(
+            g, states[name], COMPRESS_FRAC)
+    return frames, new
+
+
+def cpu_compression(name: str, grads: list, noise) -> list:
+    """One leaf's rounds and int8 codes on the CPU."""
+    state = compression.init_feedback(grads[0])
+    out = []
+    for g in grads:
+        frame, state = compression.compress_with_feedback(g, state,
+                                                          COMPRESS_FRAC)
+        out.append((frame.indices, frame.values, state.residual))
+    return out, compression.quantize_int8(grads[-1], noise=noise)
+
+
+def phase20_compression(gpu: str) -> None:
+    """(a): smollm-135m's gradient leaves, the card against the CPU."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cfg = get_config("smollm-135m")
+    shapes = {n: tuple(p.shape) for n, p in
+              lm.init_params(None, cfg, "meta").named_parameters()}
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    rounds = [{n: torch.randn(s, generator=gen, device=DEV)
+               for n, s in shapes.items()} for _ in range(COMPRESS_ROUNDS)]
+    noise = {n: torch.rand(s, generator=gen, device=DEV) - 0.5
+             for n, s in shapes.items()}
+    states = {n: compression.init_feedback(g) for n, g in rounds[0].items()}
+    card_out, times = {n: [] for n in shapes}, []
+    for grads in rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames, states = compression_round(grads, states)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        for n in shapes:
+            card_out[n].append(tuple(t.cpu() for t in (
+                frames[n].indices, frames[n].values, states[n].residual)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes = {n: compression.quantize_int8(rounds[-1][n], noise=noise[n])
+             for n in shapes}
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    with ThreadPoolExecutor(8) as pool:
+        cpu = dict(zip(shapes, pool.map(
+            lambda n: cpu_compression(n, [r[n].cpu() for r in rounds],
+                                      noise[n].cpu()), shapes)))
+    for n in shapes:
+        got_rounds, (q, scale) = cpu[n]
+        for r, (want, got) in enumerate(zip(card_out[n], got_rounds)):
+            for what, w, g in zip(("indices", "values", "residual"), want,
+                                  got):
+                if not torch.equal(w, g):
+                    raise AssertionError(f"compression {n} round {r}: "
+                                         f"{what}, card != CPU")
+        if not (torch.equal(codes[n][0].cpu(), q)
+                and torch.equal(codes[n][1].cpu(), scale)):
+            raise AssertionError(f"quantize_int8 {n}: card != CPU")
+    numel = sum(math.prod(s) for s in shapes.values())
+    sent = sum(max(1, int(COMPRESS_FRAC * math.prod(s)))
+               for s in shapes.values())
+    print(f"phase 20: compress_with_feedback at frac {COMPRESS_FRAC}, "
+          f"{COMPRESS_ROUNDS} rounds over smollm-135m's {len(shapes)} "
+          f"gradient leaves ({numel / 1e6:.1f} M entries, the largest "
+          f"{max(shapes.values(), key=math.prod)}; {sent} events a round): "
+          f"card == CPU bit for bit (indices, values, residuals); ms a "
+          f"round {', '.join(f'{t * 1e3:.2f}' for t in times)} (the first "
+          f"with warm-up); quantize_int8 with the card's noise: card == CPU "
+          f"bit for bit, {q_ms:.2f} ms over the leaves [{gpu}]", flush=True)
+
+
+class OpTape(torch.utils._python_dispatch.TorchDispatchMode):
+    """Each local floating-point op output's name, shape and float64 sum
+    (a DTensor's local ops come back through it; DTensor's metadata runs
+    on fake tensors are left out)."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if (isinstance(out, torch.Tensor) and out.is_floating_point()
+                and not isinstance(out, FakeTensor) and not func.is_view):
+            self.rows.append((str(func), tuple(out.shape),
+                              float(out.double().sum())))
+        return out
+
+
+def first_divergent_op(plain, sharded, mesh, batch, cfg) -> str:
+    """The first forward op whose output differs between the plain and
+    the DTensor ``train_loss`` (one-device mesh: the same local ops)."""
+    tapes = []
+    for params, scope in ((plain, None), (sharded, mesh)):
+        with torch.no_grad(), OpTape() as tape:
+            if scope is None:
+                lm.train_loss(params, batch, cfg)
+            else:
+                with sharding.activation_shardings(scope):
+                    lm.train_loss(params, {k: sharding.distribute(
+                        v, sharding.data_sharding_if_divisible(
+                            scope, tuple(v.shape)))
+                        for k, v in batch.items()}, cfg)
+        tapes.append(tape.rows)
+    for i, (a, b) in enumerate(zip(*tapes)):
+        if a != b:
+            return f"op {i}: plain {a} vs DTensor {b}"
+    return f"no forward op differs ({len(tapes[0])} and {len(tapes[1])} ops)"
+
+
+def one_rank_group():
+    """A one-rank gloo group in this process (file rendezvous under
+    build/), for a 1 x 1 mesh."""
+    import tempfile
+    import torch.distributed as dist
+
+    CKPT_ROOT.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=CKPT_ROOT, prefix="phase20-rdv-")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=0,
+                            world_size=1)
+    return tmp
+
+
+def phase20_train(gpu: str) -> dict:
+    """(b), one rank: the DTensor step against the plain one, in turns."""
+    import shutil
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    tmp = one_rank_group()
+    try:
+        mesh = make_debug_mesh(1, 1, device_type=DEV.type)
+        cfg = get_config(LM_TRAIN_ARCH)                 # bf16, remat, "xla"
+        dcfg = lmdata.DataConfig(*LM_TRAIN_DATA)
+        opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=10,
+                                total_steps=SHARD_TURNS)
+        plain = lm.init_params(torch.Generator(device=DEV).manual_seed(7),
+                               cfg, DEV).requires_grad_(True)
+        p_opt = adamw.init(plain)
+        dt = lm.init_params(torch.Generator(device=DEV).manual_seed(7), cfg,
+                            DEV)
+        d_opt = lmtrainer.shard_opt_state(adamw.init(dt), dt, mesh)
+        sharding.shard_params(dt, mesh)
+        dt.requires_grad_(True)
+        steps = {"plain": lmtrainer.make_train_step(cfg, opt, device=DEV),
+                 "DTensor": lmtrainer.make_train_step(cfg, opt, mesh=mesh,
+                                                      device=DEV)}
+        state = {"plain": [plain, p_opt], "DTensor": [dt, d_opt]}
+        times, losses = {k: [] for k in steps}, {k: [] for k in steps}
+        for i in range(SHARD_TURNS):
+            batch = lmdata.synthetic_batch(cfg, dcfg, i, device=DEV)
+            order = ("plain", "DTensor") if i % 2 == 0 else ("DTensor",
+                                                              "plain")
+            for k in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, o, m = steps[k](*state[k], batch)
+                loss = float(m["loss"])
+                times[k].append(time.perf_counter() - t0)
+                state[k][1] = o
+                losses[k].append(loss)
+            a, b = losses["plain"][-1], losses["DTensor"][-1]
+            if a != b:
+                where = first_divergent_op(plain, dt, mesh, batch, cfg)
+                print(f"phase 20: step {i}: DTensor loss {b!r} vs plain "
+                      f"{a!r}; the first op that differs: {where} [{gpu}]",
+                      flush=True)
+                if not (math.isfinite(a)
+                        and abs(b - a) <= SHARD_LOSS_TOL * abs(a)):
+                    raise AssertionError(f"step {i}: the losses differ by "
+                                         f"more than {SHARD_LOSS_TOL:g}")
+        batch = lmdata.synthetic_batch(cfg, dcfg, SHARD_TURNS, device=DEV)
+        with FlopCounterMode(display=False) as fc:
+            steps["plain"](*state["plain"], batch)
+        flops = fc.get_total_flops()
+        tokens = LM_TRAIN_DATA[0] * LM_TRAIN_DATA[1]
+        ms = {k: float(np.median(v[1:])) * 1e3 for k, v in times.items()}
+        same = sum(x == y for x, y in zip(*losses.values()))
+        print(f"phase 20: the sharded train step on a 1 x 1 mesh (DTensor), "
+              f"{LM_TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+              f"layers, {cfg.dtype}, remat {cfg.remat}), batch "
+              f"{LM_TRAIN_DATA[0]} x {LM_TRAIN_DATA[1]}, {SHARD_TURNS} steps "
+              f"in turns with the plain step from the same state: ms a step "
+              f"(median of steps 1-{SHARD_TURNS - 1}) DTensor "
+              f"{ms['DTensor']:.1f}, plain {ms['plain']:.1f} (ratio "
+              f"{ms['DTensor'] / ms['plain']:.3f}); tokens/s DTensor "
+              f"{tokens / ms['DTensor'] * 1e3:.0f}, plain "
+              f"{tokens / ms['plain'] * 1e3:.0f}; losses "
+              f"{losses['plain'][0]:.6f} -> {losses['plain'][-1]:.6f}, "
+              f"{same} of {SHARD_TURNS} equal bit for bit, max rel diff "
+              f"{max(abs(y - x) / abs(x) for x, y in zip(*losses.values())):.2g}"
+              f"; FlopCounterMode count of the plain step {flops:.6e} [{gpu}]",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"flops": flops, "ms": ms}
+
+
+def phase20_rank(rank: int, world: int, device: str) -> dict:
+    """(b), each of 4 gloo ranks: the 2 x 2 sharded step against the
+    one-rank step, smollm-135m at full width and 2 layers, float32."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(2)
+    b, s, layers = SHARD_GROUP_DATA
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), n_layers=layers,
+                              dtype="float32")
+    dev = torch.device(device)
+    mesh = init_device_mesh(device, SHARD_GROUP_MESH,
+                            mesh_dim_names=("data", "model"))
+    batch = lmdata.synthetic_batch(cfg, lmdata.DataConfig(b, s), 0,
+                                   device=dev)
+    opt = adamw.AdamWConfig()
+
+    def params():
+        return lm.init_params(torch.Generator(device=dev).manual_seed(3),
+                              cfg, dev)
+
+    one = params().requires_grad_(True)
+    _, _, m1 = lmtrainer.make_train_step(cfg, opt, device=dev)(
+        one, adamw.init(one), batch)
+    sh = params()
+    s_opt = lmtrainer.shard_opt_state(adamw.init(sh), sh, mesh)
+    sharding.shard_params(sh, mesh)
+    sh.requires_grad_(True)
+    t0 = time.perf_counter()
+    _, _, m2 = lmtrainer.make_train_step(cfg, opt, mesh=mesh, device=dev)(
+        sh, s_opt, batch)
+    loss2 = float(m2["loss"])
+    step_s = time.perf_counter() - t0
+    errs = {}
+    for n, p in one.named_parameters():
+        got = sharding.full(dict(sh.named_parameters())[n].detach())
+        errs[n] = float((got - p.detach()).abs().max()) / max(
+            float(p.detach().abs().max()), 1e-30)
+    return {"loss": (float(m1["loss"]), loss2), "errs": errs,
+            "step_s": step_s}
+
+
+def phase20_group(gpu: str) -> None:
+    from repro_torch.parallel.spawn import run_ranks
+
+    world = math.prod(SHARD_GROUP_MESH)
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase20_rank, world, SHARD_GROUP_DEVICE,
+                      timeout_s=600)
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(ranks):
+        (l1, l2), errs = r["loss"], r["errs"]
+        worst = max(errs, key=errs.get)
+        if not (abs(l2 - l1) <= SHARD_GROUP_LOSS_TOL * abs(l1)
+                and errs[worst] <= SHARD_GROUP_PARAM_TOL):
+            raise AssertionError(f"phase 20 rank {rank}: loss {l2} vs {l1}, "
+                                 f"worst leaf {worst} {errs[worst]:.3g}")
+    r = ranks[0]
+    worst = max(r["errs"], key=r["errs"].get)
+    b, s, layers = SHARD_GROUP_DATA
+    print(f"phase 20: {world} gloo ranks on a {SHARD_GROUP_MESH[0]} x "
+          f"{SHARD_GROUP_MESH[1]} mesh, tensors on the "
+          f"{'card' if SHARD_GROUP_DEVICE == 'cuda' else 'CPU'} "
+          f"(SHARD_GROUP_DEVICE = {SHARD_GROUP_DEVICE!r}), {LM_TRAIN_ARCH} at "
+          f"full width and {layers} layers, float32, batch {b} x {s}: one "
+          f"sharded step against the one-rank step: loss {r['loss'][1]:.7f} "
+          f"vs {r['loss'][0]:.7f} (rel {abs(r['loss'][1] - r['loss'][0]) / abs(r['loss'][0]):.2g}); "
+          f"worst parameter {worst} {r['errs'][worst]:.2g} x max|p| on "
+          f"rank 0, every rank within {SHARD_GROUP_PARAM_TOL:g}; sharded "
+          f"step {max(x['step_s'] for x in ranks):.2f} s (slowest rank); "
+          f"{wall:.1f} s with start-up [{gpu}]", flush=True)
+
+
+def dryrun_records(args: list) -> tuple[dict, float]:
+    """Run ``python -m repro_torch.launch.dryrun`` with ``args`` in a
+    process of its own (the fake group owns the default group); its
+    records by cell and the wall time."""
+    out = CKPT_ROOT / "phase20-dryrun.json"
+    CKPT_ROOT.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    env = {**__import__("os").environ, "PYTHONPATH": str(src)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           *args, "--no-probes", "--out", str(out)], env=env,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"dry run {args}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    recs = json.loads(out.read_text())
+    out.unlink()
+    return recs, wall
+
+
+def roofline_row(rec: dict) -> str:
+    r = rec["roofline"]
+    return (f"{rec['cell']}: compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}, "
+            f"bound_s {r['bound_s']:.6g}, useful {r['useful_ratio']:.3f}, "
+            f"roofline {r['roofline_fraction']:.4%}; flops/device "
+            f"{r['hlo_flops']:.6e}, bytes/device {r['hlo_bytes']:.6e}, "
+            f"collective bytes/device {r['coll_bytes']:.6e}, "
+            f"{rec['n_ops']} local ops traced; total_live "
+            f"{r['bytes_per_device']['total_live'] / 2 ** 30:.2f} GiB")
+
+
+def phase20_dryrun(gpu: str, train: dict) -> None:
+    """(c): the production cells and (b)'s own shape on a 1 x 1 mesh."""
+    recs, wall = dryrun_records(
+        ["--arch", ",".join(a for a, _ in DRYRUN_CELLS),
+         "--shape", ",".join(sorted({s for _, s in DRYRUN_CELLS}))])
+    for arch, shape in DRYRUN_CELLS:
+        rec = recs[f"{arch}|{shape}|16x16"]
+        print(f"phase 20: dry run {roofline_row(rec)}; trace "
+              f"{rec['trace_s']} s, cell wall {rec['wall_s']} s [H100 "
+              f"roofline constants; {gpu}]", flush=True)
+    print(f"phase 20: the dry run of {len(DRYRUN_CELLS)} cells took "
+          f"{wall:.1f} s with start-up [{gpu}]", flush=True)
+    b, s = LM_TRAIN_DATA
+    recs, wall = dryrun_records(
+        ["--arch", LM_TRAIN_ARCH, "--shape", "train_4k", "--mesh", "1x1",
+         "--batch", str(b), "--seq-len", str(s)])
+    rec = recs[f"{LM_TRAIN_ARCH}|train_4k[{b}x{s}]|1x1"]
+    flops = rec["roofline"]["hlo_flops"]
+    if flops != train["flops"]:
+        raise AssertionError(f"dry-run flops {flops} != FlopCounterMode's "
+                             f"{train['flops']} on the card")
+    bound_ms = rec["roofline"]["bound_s"] * 1e3
+    print(f"phase 20: dry run of phase 19's shape {roofline_row(rec)}; "
+          f"flops == FlopCounterMode's count of the real step on the card; "
+          f"bound {bound_ms:.3f} ms against {train['ms']['plain']:.1f} ms "
+          f"a step measured (plain; DTensor {train['ms']['DTensor']:.1f}): "
+          f"{bound_ms / train['ms']['plain']:.2%} of it; wall {wall:.1f} s "
+          f"[{gpu}]", flush=True)
+
+
+def phase20(launches: dict, gpu: str) -> None:
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    phase20_compression(gpu)
+    t1 = time.perf_counter()
+    train = phase20_train(gpu)
+    phase20_group(gpu)
+    t2 = time.perf_counter()
+    phase20_dryrun(gpu, train)
+    if any(lm_counts().values()):
+        raise AssertionError(f"phase 20 launched an LM kernel: {lm_paths()}")
+    print(f"phase 20: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s; no LM kernel launched [{gpu}]",
+          flush=True)
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -4423,6 +4829,7 @@ def main() -> None:
     timed_phase("17", lambda: phase17(launches, gpu))
     timed_phase("18", lambda: phase18(launches, gpu))
     timed_phase("19", lambda: phase19(launches, gpu))
+    timed_phase("20", lambda: phase20(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

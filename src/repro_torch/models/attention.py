@@ -12,6 +12,10 @@ kv_lora latent space (q_eff = q_nope · W_uk), scores are taken directly
 against the cached compressed latent, and the attention-weighted latent is
 expanded through W_uv afterwards — the cache stays at (kv_lora + rope_dim)
 per token.
+
+``constrain`` marks the activations' layouts where the JAX package's
+``with_sharding_constraint``s stand; it is a no-op outside a sharding
+scope (``parallel.sharding.activation_shardings``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (Params, apply_rope, dense, dtype_of,
-                                       new_param, rms_norm)
+                                       new_param, rms_norm, split_heads)
+from repro_torch.parallel.sharding import (constrain, heads_layout,
+                                           replicate_dim, shard_offset,
+                                           splittable, write_at)
 
 NEG_INF = -1e30
 
@@ -40,7 +47,8 @@ class KVCache(NamedTuple):
 
 
 def _chunked_attention(q, k, v, *, causal: bool, sm_scale: float,
-                       block_kv: int, score_dtype=torch.float32):
+                       block_kv: int, score_dtype=torch.float32,
+                       q_offset: int | None = None):
     """Flash-style online-softmax attention in plain PyTorch (a loop over KV
     blocks): materializes only [*, Sq, block_kv] score tiles."""
     b, hq, sq, d = q.shape
@@ -50,7 +58,8 @@ def _chunked_attention(q, k, v, *, causal: bool, sm_scale: float,
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
     nb = (skv + pad) // block_kv
-    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    q_pos = torch.arange(sq, device=q.device) + (
+        skv - sq if q_offset is None else q_offset)
     neg_big = NEG_INF if score_dtype == torch.float32 else -3e38
 
     m = torch.full((b, hq, sq, 1), NEG_INF, device=q.device)
@@ -77,21 +86,71 @@ def _chunked_attention(q, k, v, *, causal: bool, sm_scale: float,
     return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
 
 
+def _sdpa_shards(q, k, v, *, decode_index=None, **kw):
+    """``sdpa`` of DTensors on each rank's shards: attention is independent
+    for each batch row and head, and for each query row given every key.
+    q keeps its layout (batch, heads and, where the heads miss the model
+    axis, the sequence split as ``constrain`` lays it out); K and V are
+    laid out on q's batch and head shards, whole on the sequence; each rank
+    runs the plain ``sdpa`` on its pieces, its query rows offset by their
+    place in the sequence.  (DTensor's own einsums flatten [B, H], which
+    torch 2.11 refuses where both are sharded.)  In decode each rank takes
+    the K/V heads of its query heads from the whole cache."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = q.device_mesh
+    q = replicate_dim(q, 3)
+    if decode_index is None:
+        layout = heads_layout(q)
+        # Where q's rows are split, each rank's K/V gradient covers its own
+        # rows only: a partial sum over those mesh dimensions.
+        grads = [Partial() if p.is_shard(2) else l
+                 for p, l in zip(q.placements, layout)]
+        k, v = (t.redistribute(mesh, layout).to_local(grad_placements=grads)
+                for t in (k, v))
+        out = sdpa(q.to_local(), k, v,
+                   q_offset=shard_offset(q, 2) + k.shape[2] - q.shape[2],
+                   **kw)
+    else:
+        q = replicate_dim(q, 2)
+        batch = [p if p.is_shard(0) else Replicate() for p in q.placements]
+        ql = q.to_local()
+        group = q.shape[1] // k.shape[1]
+        heads = (torch.arange(ql.shape[1], device=ql.device)
+                 + shard_offset(q, 1)) // group
+        k, v = (t.redistribute(mesh, batch).to_local().index_select(1, heads)
+                for t in (k, v))
+        out = sdpa(ql, k, v, decode_index=decode_index, **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
 def sdpa(q, k, v, *, causal: bool, impl: str = "xla",
          sm_scale: float | None = None, decode_index=None,
-         block_kv: int = 0, score_dtype=torch.float32):
+         block_kv: int = 0, score_dtype=torch.float32,
+         q_offset: int | None = None):
     """q: [B,Hq,Sq,hd]; k,v: [B,Hkv,Skv,hd].
 
     ``impl="pallas"`` outside decode runs this repository's flash-attention
     kernel (``kernels.flash_attention``); ``"xla"`` the plain composites.
     ``decode_index``: when set, mask keys at positions > index (decode with
     a statically sized cache).  ``block_kv`` > 0 selects the chunked
-    online-softmax path for train/prefill.
+    online-softmax path for train/prefill.  ``q_offset``: the causal
+    position of q's first row (default: q ends where the keys end).
+    DTensors run on each rank's shards (``_sdpa_shards``), so the JAX
+    package's constraints on the score tiles have no counterpart: the
+    scores are local to a rank.
     """
+    from torch.distributed.tensor import DTensor
+
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if impl == "pallas" and decode_index is None:
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    kw = dict(causal=causal, impl=impl, sm_scale=sm_scale,
+              block_kv=block_kv, score_dtype=score_dtype)
+    if isinstance(q, DTensor) and decode_index is not None:
+        return _sdpa_shards(constrain(q, "bhsk"), k, v,
+                            decode_index=decode_index, **kw)
 
     if decode_index is not None:
         # Decode: grouped-query attention against the cache, no head
@@ -116,13 +175,20 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "xla",
     if group > 1:
         k = k.repeat_interleave(group, dim=1)
         v = v.repeat_interleave(group, dim=1)
+    q = constrain(q, "bhsk")
+    k = constrain(k, "bhsk")
+    v = constrain(v, "bhsk")
+    if isinstance(q, DTensor):
+        return _sdpa_shards(q, k, v, **kw)
     if block_kv:
         return _chunked_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                  block_kv=block_kv, score_dtype=score_dtype)
+                                  block_kv=block_kv, score_dtype=score_dtype,
+                                  q_offset=q_offset)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     sq, skv = q.shape[2], k.shape[2]
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        qpos = torch.arange(sq, device=q.device)[:, None] + (
+            skv - sq if q_offset is None else q_offset)
         s = torch.where(torch.arange(skv, device=q.device)[None, :] <= qpos,
                         s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -142,19 +208,18 @@ class GQA(Params):
                  cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim_
-        self.wq = dense(gen, stack, d, cfg.n_heads * hd, device)
-        self.wk = dense(gen, stack, d, cfg.n_kv_heads * hd, device)
-        self.wv = dense(gen, stack, d, cfg.n_kv_heads * hd, device)
+        proj = ("embed", "heads")
+        self.wq = dense(gen, stack, d, cfg.n_heads * hd, device, axes=proj)
+        self.wk = dense(gen, stack, d, cfg.n_kv_heads * hd, device, axes=proj)
+        self.wv = dense(gen, stack, d, cfg.n_kv_heads * hd, device, axes=proj)
         self.wo = dense(gen, stack, cfg.n_heads * hd, d, device,
-                        scale=1.0 / (cfg.n_heads * hd) ** 0.5)
+                        scale=1.0 / (cfg.n_heads * hd) ** 0.5,
+                        axes=("heads", "embed"))
         if cfg.qk_norm and not cross:
-            self.q_norm = new_param(None, (*stack, hd), device, fill=1.0)
-            self.k_norm = new_param(None, (*stack, hd), device, fill=1.0)
-
-
-def _split_heads(x, n_heads, hd):
-    b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, hd).transpose(1, 2)
+            self.q_norm = new_param(None, (*stack, hd), device, fill=1.0,
+                                    axes=(None,))
+            self.k_norm = new_param(None, (*stack, hd), device, fill=1.0,
+                                    axes=(None,))
 
 
 def gqa_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -180,9 +245,9 @@ def gqa_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     kv_in = kv_source if cross else x
     score_dtype = dtype_of(cfg.attn_score_dtype)
 
-    q = _split_heads(x @ params["wq"].to(dt), cfg.n_heads, hd)
-    k = _split_heads(kv_in @ params["wk"].to(dt), cfg.n_kv_heads, hd)
-    v = _split_heads(kv_in @ params["wv"].to(dt), cfg.n_kv_heads, hd)
+    q = constrain(split_heads(x @ params["wq"].to(dt), cfg.n_heads), "bhsk")
+    k = split_heads(kv_in @ params["wk"].to(dt), cfg.n_kv_heads)
+    v = split_heads(kv_in @ params["wv"].to(dt), cfg.n_kv_heads)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -194,8 +259,8 @@ def gqa_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if mode == "decode" and cache is not None:
-        cache.k[:, :, cache_index:cache_index + s] = k.to(cache.k.dtype)
-        cache.v[:, :, cache_index:cache_index + s] = v.to(cache.v.dtype)
+        write_at(cache.k, k, 2, cache_index)
+        write_at(cache.v, v, 2, cache_index)
         new_cache = cache
         out = sdpa(q, cache.k.to(dt), cache.v.to(dt), causal=False,
                    impl=cfg.attention_impl, decode_index=cache_index,
@@ -206,7 +271,8 @@ def gqa_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         if mode == "prefill":
             new_cache = KVCache(k=k, v=v)
 
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    out = constrain(out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd),
+                    "bsh")
     return out @ params["wo"].to(dt), new_cache
 
 
@@ -226,18 +292,23 @@ class MLA(Params):
         nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         vd, lora = cfg.v_head_dim, cfg.kv_lora_rank
         if cfg.q_lora_rank:
-            self.wq_a = dense(gen, stack, d, cfg.q_lora_rank, device)
+            self.wq_a = dense(gen, stack, d, cfg.q_lora_rank, device,
+                              axes=("embed", None))
             self.q_norm = new_param(None, (*stack, cfg.q_lora_rank), device,
-                                    fill=1.0)
+                                    fill=1.0, axes=(None,))
             self.wq_b = dense(gen, stack, cfg.q_lora_rank, h * (nope + rope_d),
-                              device)
+                              device, axes=(None, "heads"))
         else:
-            self.wq = dense(gen, stack, d, h * (nope + rope_d), device)
-        self.wkv_a = dense(gen, stack, d, lora + rope_d, device)
-        self.kv_norm = new_param(None, (*stack, lora), device, fill=1.0)
-        self.wkv_b = dense(gen, stack, lora, h * (nope + vd), device)
+            self.wq = dense(gen, stack, d, h * (nope + rope_d), device,
+                            axes=("embed", "heads"))
+        self.wkv_a = dense(gen, stack, d, lora + rope_d, device,
+                           axes=("embed", None))
+        self.kv_norm = new_param(None, (*stack, lora), device, fill=1.0,
+                                 axes=(None,))
+        self.wkv_b = dense(gen, stack, lora, h * (nope + vd), device,
+                           axes=(None, "heads"))
         self.wo = dense(gen, stack, h * vd, d, device,
-                        scale=1.0 / (h * vd) ** 0.5)
+                        scale=1.0 / (h * vd) ** 0.5, axes=("heads", "embed"))
 
 
 def _mla_q(params, x, cfg: ModelConfig, positions):
@@ -249,7 +320,7 @@ def _mla_q(params, x, cfg: ModelConfig, positions):
         q = cq @ params["wq_b"].to(dt)
     else:
         q = x @ params["wq"].to(dt)
-    q = q.reshape(b, s, h, -1).transpose(1, 2)
+    q = split_heads(q, h)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
     return q_nope, q_rope
@@ -288,20 +359,23 @@ def mla_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
     k_rope = apply_rope(kv_a[..., lora:], positions, cfg.rope_theta)
 
     sm_scale = 1.0 / ((nope + rope_d) ** 0.5)
-    w_kv_b = params["wkv_b"].to(dt).reshape(lora, h, nope + vd)
+    w_kv_b = splittable(params["wkv_b"].to(dt), 1, h).reshape(lora, h,
+                                                             nope + vd)
     w_uk, w_uv = w_kv_b[..., :nope], w_kv_b[..., nope:]
 
     new_cache = None
     if mode == "decode" and cache is not None:
-        cache.k[:, cache_index:cache_index + s] = c_kv.to(cache.k.dtype)
-        cache.v[:, cache_index:cache_index + s] = k_rope.to(cache.v.dtype)
+        write_at(cache.k, c_kv, 1, cache_index)
+        write_at(cache.v, k_rope, 1, cache_index)
         new_cache = cache
         # Absorbed decode: q_eff[b,h,q,lora] = q_nope · W_uk
-        q_eff = torch.einsum("bhqn,lhn->bhql", q_nope, w_uk)
+        q_eff = constrain(torch.einsum("bhqn,lhn->bhql", q_nope, w_uk),
+                          "bhsk")
         c32 = cache.k.float()
         scores = (torch.einsum("bhql,bsl->bhqs", q_eff.float(), c32)
                   + torch.einsum("bhqr,bsr->bhqs", q_rope.float(),
                                  cache.v.float())) * sm_scale
+        scores = constrain(scores, "bhss")
         kpos = torch.arange(cache.k.shape[1], device=x.device)
         scores = torch.where(kpos <= cache_index, scores, NEG_INF)
         p = torch.softmax(scores, dim=-1)
@@ -309,7 +383,8 @@ def mla_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         out = torch.einsum("bhql,lhv->bhqv", latent, w_uv)
     else:
         # Train/prefill: expand K/V.
-        kv = torch.einsum("bsl,lhx->bhsx", c_kv, w_kv_b)  # [B,H,S,nope+vd]
+        kv = constrain(torch.einsum("bsl,lhx->bhsx", c_kv, w_kv_b),
+                       "bhsk")                          # [B,H,S,nope+vd]
         k_nope, v = kv[..., :nope], kv[..., nope:]
         k = torch.cat([k_nope, k_rope[:, None].expand(b, h, s, rope_d)], -1)
         q = torch.cat([q_nope, q_rope], -1)
@@ -323,5 +398,5 @@ def mla_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         if mode == "prefill":
             new_cache = KVCache(k=c_kv, v=k_rope)
 
-    out = out.transpose(1, 2).reshape(b, s, h * vd)
+    out = constrain(out.transpose(1, 2).reshape(b, s, h * vd), "bsh")
     return out @ params["wo"].to(dt), new_cache

@@ -10,8 +10,13 @@ The forward functions take any mapping of name → tensor (a module or such
 a dict), like the JAX functions take a dict of ``Param``s.
 
 Parameters are float32 and are cast to the activation dtype at use, as
-``x @ w.astype(dt)`` does in JAX.  The JAX package's logical-axis
-annotations are sharding hints and have no counterpart on one card.
+``x @ w.astype(dt)`` does in JAX.  Each parameter carries the JAX
+package's logical-axis annotation (``Param(value, axes)``: ``"embed"``,
+``"heads"``, ``"ff"``, ``"experts"``, ``"vocab"``, ``"layers"`` or None
+for each dimension; a stacked parameter's leading axis is ``"layers"``).
+A ``Params`` module records them by name, apart from the tensors, so
+``state_dict()`` keys stay the paths; ``param_axes`` lists them and
+``repro_torch.parallel.sharding`` resolves them to mesh dimensions.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import replicate_dim, splittable
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -33,7 +39,15 @@ def dtype_of(name: str) -> torch.dtype:
 
 class Params(nn.Module):
     """A module of named parameters (and sub-modules) that the forward
-    functions index like the JAX package's parameter dicts."""
+    functions index like the JAX package's parameter dicts.  A parameter
+    made by ``as_param`` (``new_param``, ``dense``) has its logical axes
+    recorded in ``_axes`` when it is assigned."""
+
+    def __setattr__(self, name: str, value) -> None:
+        axes = getattr(value, "logical_axes", None)
+        if axes is not None:
+            self.__dict__.setdefault("_axes", {})[name] = axes
+        super().__setattr__(name, value)
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -55,10 +69,34 @@ class Params(nn.Module):
                 for i in range(n)]
 
 
-def new_param(gen: torch.Generator | None, shape, device, *,
+def param_axes(params: Params, prefix: str = "") -> dict:
+    """``{dotted parameter name: logical axes}`` of every parameter of
+    ``params``; raises if one has none."""
+    recorded = params.__dict__.get("_axes", {})
+    out = {}
+    for name in params._parameters:
+        if name not in recorded:
+            raise KeyError(f"parameter {prefix}{name} has no logical axes")
+        out[prefix + name] = recorded[name]
+    for name, mod in params._modules.items():
+        out.update(param_axes(mod, f"{prefix}{name}."))
+    return out
+
+
+def as_param(t: torch.Tensor, axes) -> nn.Parameter:
+    """``t`` as a parameter with the logical ``axes`` of its trailing
+    dimensions; leading dimensions beyond them (a layer stack) are
+    ``"layers"``."""
+    axes = tuple(axes)
+    p = nn.Parameter(t, requires_grad=False)
+    p.logical_axes = ("layers",) * (t.dim() - len(axes)) + axes
+    return p
+
+
+def new_param(gen: torch.Generator | None, shape, device, *, axes,
               scale: float = 1.0, fill: float | None = None) -> nn.Parameter:
     """A float32 parameter: normal(0, 1) · scale drawn from ``gen``, or
-    ``fill`` everywhere."""
+    ``fill`` everywhere; ``axes`` as ``as_param`` takes them."""
     if fill is not None:
         t = torch.full(shape, fill, dtype=torch.float32, device=device)
     else:
@@ -66,13 +104,45 @@ def new_param(gen: torch.Generator | None, shape, device, *,
         # in memory once while it is made, not twice.
         t = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device).mul_(scale)
-    return nn.Parameter(t, requires_grad=False)
+    return as_param(t, axes)
 
 
 def dense(gen, stack, in_dim: int, out_dim: int, device,
-          scale: float | None = None) -> nn.Parameter:
+          scale: float | None = None, *, axes) -> nn.Parameter:
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    return new_param(gen, (*stack, in_dim, out_dim), device, scale=scale)
+    return new_param(gen, (*stack, in_dim, out_dim), device, scale=scale,
+                     axes=axes)
+
+
+# ---------------------------------------------------------------------------
+# Heads
+# ---------------------------------------------------------------------------
+
+
+class _SplitHeads(torch.autograd.Function):
+    """[B, S, H·hd] → the [B, H, S, hd] view, whose gradient is copied
+    contiguous before it is merged back.  (Autograd's own backward reshapes
+    the transposed gradient, which DTensor, whose layout record of a
+    redistributed or cast gradient can disagree with its shards', takes
+    for a view of a non-contiguous tensor and refuses.)"""
+
+    @staticmethod
+    def forward(ctx, x, n_heads):
+        b, s, _ = x.shape
+        return x.reshape(b, s, n_heads, -1).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        b, h, s, hd = g.shape
+        g = g.transpose(1, 2).clone(memory_format=torch.contiguous_format)
+        return g.reshape(b, s, h * hd), None
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """x [B, S, H·hd] as [B, H, S, hd] (a view).  On a mesh the feature
+    dimension is gathered first where its shards do not split into whole
+    heads (``parallel.sharding.splittable``)."""
+    return _SplitHeads.apply(splittable(x, 2, n_heads), n_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +153,11 @@ def dense(gen, stack, in_dim: int, out_dim: int, device,
 class Norm(Params):
     def __init__(self, cfg: ModelConfig, stack=(), device=None):
         super().__init__()
-        self.scale = new_param(None, (*stack, cfg.d_model), device, fill=1.0)
+        self.scale = new_param(None, (*stack, cfg.d_model), device, fill=1.0,
+                               axes=("embed",))
         if cfg.norm == "layernorm":
             self.bias = new_param(None, (*stack, cfg.d_model), device,
-                                  fill=0.0)
+                                  fill=0.0, axes=("embed",))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -147,9 +218,10 @@ class MLP(Params):
         d_ff = d_ff or cfg.d_ff
         d = cfg.d_model
         if cfg.mlp_act in ("silu", "gelu"):
-            self.w_gate = dense(gen, stack, d, d_ff, device)
-        self.w_up = dense(gen, stack, d, d_ff, device)
-        self.w_down = dense(gen, stack, d_ff, d, device)
+            self.w_gate = dense(gen, stack, d, d_ff, device,
+                                axes=("embed", "ff"))
+        self.w_up = dense(gen, stack, d, d_ff, device, axes=("embed", "ff"))
+        self.w_down = dense(gen, stack, d_ff, d, device, axes=("ff", "embed"))
 
 
 _ACTS = {"silu": F.silu,
@@ -174,13 +246,19 @@ def apply_mlp(x: torch.Tensor, params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_embedding(gen, cfg: ModelConfig, device) -> nn.Parameter:
-    return new_param(gen, (cfg.vocab_size, cfg.d_model), device, scale=0.02)
+    return new_param(gen, (cfg.vocab_size, cfg.d_model), device, scale=0.02,
+                     axes=("vocab", "embed"))
 
 
 def embed_tokens(tokens: torch.Tensor, embedding: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    # Gather, then cast: the same values as casting the table first.
-    return F.embedding(tokens, embedding).to(dtype_of(cfg.dtype))
+    # Gather, then cast: the same values as casting the table first.  On a
+    # mesh the lookup reads the whole table (gathered on both dimensions):
+    # DTensor's lookup in a vocab-sharded table sums "masked partials",
+    # whose mask breaks once the ids are sharded on the batch and which
+    # torch 2.11 cannot add to the head's partial gradient of a tied table.
+    table = replicate_dim(replicate_dim(embedding, 0), 1)
+    return F.embedding(tokens, table).to(dtype_of(cfg.dtype))
 
 
 def logits_from_hidden(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -191,12 +269,39 @@ def logits_from_hidden(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return h.float() @ w.float()
 
 
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``log_softmax`` over the last dimension.  On a DTensor whose last
+    dimension (the vocabulary) is sharded, DTensor's own op gathers it
+    (12.9 GB a device for smollm-135m at train_4k on 16 x 16): the shift
+    and the normaliser are taken over the shards instead, all-reductions
+    of [..., 1]."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and any(p.is_shard(x.ndim - 1)
+                                      for p in x.placements):
+        # The max only shifts (log_softmax's own carries no gradient).
+        z = x - x.detach().amax(-1, keepdim=True)
+        return z - torch.log(torch.sum(torch.exp(z), -1, keepdim=True))
+    return torch.log_softmax(x, dim=-1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``labels`` under ``logits`` [...,
     vocab]; with ``mask`` the mean over its weight (at least 1)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor
+
+    logp = _log_softmax(logits)
+    if isinstance(logp, DTensor):
+        # DTensor's gather backward scatters into zeros of the whole
+        # logits' shape on every rank (206 GB a device for smollm-135m at
+        # train_4k on 16 x 16); the label's entry picked by a mask is the
+        # same value (one term, zeros elsewhere) with a sharded backward.
+        vocab = torch.arange(logp.shape[-1], device=labels.device)
+        nll = -torch.sum(torch.where(vocab == labels[..., None].long(),
+                                     logp, 0.0), dim=-1)
+    else:
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

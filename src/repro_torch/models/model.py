@@ -10,8 +10,10 @@ layers with cross-attention to its output).  Embeddings-input archs
 over a stacked layer axis, the port loops over it in Python; parameters
 and caches keep the stacked layout, and a stack is taken apart once a call
 (``Params.per_layer``).  Training runs ``train_loss`` under ``torch.autograd``
-with per-layer remat where the JAX package has it; the sharded LM path is
-still to port (ROADMAP.md queue 1 item 10).
+with per-layer remat where the JAX package has it.  On a device mesh the
+parameters and the batch are DTensors (``parallel.sharding``), and
+``constrain`` marks the activations' layouts at the JAX package's places
+inside an ``activation_shardings`` scope.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.models.layers import (MLP, Norm, Params, apply_mlp,
                                        embed_tokens, init_embedding,
                                        logits_from_hidden)
 from repro_torch.models.transformer import DecoderLayers, decoder_layer
+from repro_torch.parallel.sharding import constrain
 
 
 class StackSegment(NamedTuple):
@@ -330,11 +333,13 @@ def train_loss(params, batch: dict, cfg: ModelConfig):
     if labels is None:
         raise ValueError("training batch needs labels")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = constrain(x, "bsd")
     x, _, aux = apply_stack(params, x, cfg, mode="train", positions=positions,
                             caches=None, cache_index=None,
                             encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)
-    loss = cross_entropy(logits_from_hidden(x, _head(params, cfg)), labels)
+    logits = constrain(logits_from_hidden(x, _head(params, cfg)), "bsv")
+    loss = cross_entropy(logits, labels)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
@@ -358,12 +363,13 @@ def prefill(params, batch: dict, cfg: ModelConfig):
     else:
         x = embed_tokens(batch["tokens"], params["embed"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = constrain(x, "bsd")
     x, caches, _ = apply_stack(params, x, cfg, mode="prefill",
                             positions=positions, caches=None, cache_index=None,
                             encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)
-    return (logits_from_hidden(x[:, -1], _head(params, cfg)), caches,
-            encoder_out)
+    logits = constrain(logits_from_hidden(x[:, -1], _head(params, cfg)), "bv")
+    return logits, caches, encoder_out
 
 
 @torch.no_grad()
@@ -387,4 +393,5 @@ def decode_step(params, tokens, caches, cache_index: int, cfg: ModelConfig,
                             positions=positions, caches=caches,
                             cache_index=cache_index, encoder_out=encoder_out)
     x = apply_norm(x, params["final_norm"], cfg)
-    return logits_from_hidden(x[:, 0], _head(params, cfg)), caches
+    logits = constrain(logits_from_hidden(x[:, 0], _head(params, cfg)), "bv")
+    return logits, caches

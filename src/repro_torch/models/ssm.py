@@ -25,7 +25,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.kernels.linear_scan.ref import (linear_scan_chunked,
                                                  linear_scan_decode_ref)
-from repro_torch.models.layers import Params, dense, new_param, rms_norm
+from repro_torch.models.layers import (Params, as_param, dense, new_param,
+                                       rms_norm, split_heads)
+from repro_torch.parallel.sharding import constrain, on_heads, splittable
 
 
 W_LORA_RANK = 64
@@ -42,16 +44,20 @@ class Mamba2(Params):
         d, di = cfg.d_model, cfg.d_inner_
         st, h = cfg.ssm_state, cfg.n_ssm_heads
         proj_out = 2 * di + 2 * st + h       # z, x, B, C, dt
-        self.in_proj = dense(gen, stack, d, proj_out, device)
+        self.in_proj = dense(gen, stack, d, proj_out, device,
+                             axes=("embed", "ff"))
         self.conv_w = new_param(gen, (*stack, cfg.conv_kernel, di + 2 * st),
-                                device, scale=1.0 / math.sqrt(cfg.conv_kernel))
+                                device, scale=1.0 / math.sqrt(cfg.conv_kernel),
+                                axes=(None, "ff"))
         a_log = torch.log(torch.linspace(1.0, 16.0, h, device=device))
-        self.a_log = torch.nn.Parameter(a_log.expand(*stack, h).clone(),
-                                        requires_grad=False)
-        self.d_skip = new_param(None, (*stack, h), device, fill=1.0)
-        self.dt_bias = new_param(None, (*stack, h), device, fill=0.0)
-        self.norm = new_param(None, (*stack, di), device, fill=1.0)
-        self.out_proj = dense(gen, stack, di, d, device)
+        self.a_log = as_param(a_log.expand(*stack, h).clone(), (None,))
+        self.d_skip = new_param(None, (*stack, h), device, fill=1.0,
+                                axes=(None,))
+        self.dt_bias = new_param(None, (*stack, h), device, fill=0.0,
+                                 axes=(None,))
+        self.norm = new_param(None, (*stack, di), device, fill=1.0,
+                              axes=(None,))
+        self.out_proj = dense(gen, stack, di, d, device, axes=("ff", "embed"))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, conv_state=None):
@@ -100,12 +106,15 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     # Heads: x_h [B,H,S,hd]; B/C shared across heads (n_groups=1).  q and w
     # stay stride-0 broadcast views, which the scan kernel reads as they are.
-    xh = x_ssm.reshape(b, s, h, hd).transpose(1, 2)
+    # On a mesh each is redistributed to the heads' layout (``constrain``,
+    # a no-op outside a sharding scope, where the views stay views).
+    xh = constrain(split_heads(x_ssm, h), "bhsk")
     kh = b_mat[:, None].expand(b, h, s, st) \
         * dt.transpose(1, 2)[..., None].to(dt_)                 # dt·B
-    qh = c_mat[:, None].expand(b, h, s, st)
+    kh = constrain(kh, "bhsk")
+    qh = constrain(c_mat[:, None].expand(b, h, s, st), "bhsk")
     w_bhs = w.transpose(1, 2)                                   # [B,H,S]
-    wh = w_bhs[..., None].expand(b, h, s, st)
+    wh = constrain(w_bhs[..., None].expand(b, h, s, st), "bhsk")
 
     if mode == "decode" and cache is not None:
         state, y = linear_scan_decode_ref(
@@ -118,8 +127,9 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig, *,
         if cfg.attention_impl == "pallas":
             y = linear_scan(qh, kh, xh, wh, mode="inclusive")
         else:
-            y = linear_scan_chunked(qh, kh, xh, wh,
-                                    mode="inclusive").to(dt_)
+            # On a mesh each rank scans its own batch rows and heads.
+            y = on_heads(lambda *a: linear_scan_chunked(*a, mode="inclusive"),
+                         qh, kh, xh, wh).to(dt_)
         new_cache = None
         if mode == "prefill":
             # Final recurrence state for the cache, via the closed form
@@ -159,30 +169,37 @@ class RWKV6TimeMix(Params):
         super().__init__()
         d, hd = cfg.d_model, cfg.ssm_head_dim
         for mu in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
-            setattr(self, mu, new_param(None, (*stack, d), device, fill=0.5))
-        self.wr = dense(gen, stack, d, d, device)
-        self.wk = dense(gen, stack, d, d, device)
-        self.wv = dense(gen, stack, d, d, device)
-        self.wg = dense(gen, stack, d, d, device)
+            setattr(self, mu, new_param(None, (*stack, d), device, fill=0.5,
+                                        axes=(None,)))
+        proj = ("embed", "heads")
+        self.wr = dense(gen, stack, d, d, device, axes=proj)
+        self.wk = dense(gen, stack, d, d, device, axes=proj)
+        self.wv = dense(gen, stack, d, d, device, axes=proj)
+        self.wg = dense(gen, stack, d, d, device, axes=proj)
         w_base = torch.linspace(-6.0, -0.5, d, device=device)
-        self.w_base = torch.nn.Parameter(w_base.expand(*stack, d).clone(),
-                                         requires_grad=False)
-        self.w_lora_a = dense(gen, stack, d, W_LORA_RANK, device)
-        self.w_lora_b = dense(gen, stack, W_LORA_RANK, d, device, scale=0.01)
-        self.u = new_param(None, (*stack, d // hd, hd), device, fill=0.0)
-        self.ln_scale = new_param(None, (*stack, d), device, fill=1.0)
-        self.wo = dense(gen, stack, d, d, device)
+        self.w_base = as_param(w_base.expand(*stack, d).clone(), (None,))
+        self.w_lora_a = dense(gen, stack, d, W_LORA_RANK, device,
+                              axes=("embed", None))
+        self.w_lora_b = dense(gen, stack, W_LORA_RANK, d, device, scale=0.01,
+                              axes=(None, "heads"))
+        self.u = new_param(None, (*stack, d // hd, hd), device, fill=0.0,
+                           axes=(None, None))
+        self.ln_scale = new_param(None, (*stack, d), device, fill=1.0,
+                                  axes=(None,))
+        self.wo = dense(gen, stack, d, d, device, axes=("heads", "embed"))
 
 
 class RWKV6ChannelMix(Params):
     def __init__(self, cfg: ModelConfig, gen=None, stack=(), device=None):
         super().__init__()
         d = cfg.d_model
-        self.mu_k = new_param(None, (*stack, d), device, fill=0.5)
-        self.mu_r = new_param(None, (*stack, d), device, fill=0.5)
-        self.wk = dense(gen, stack, d, cfg.d_ff, device)
-        self.wv = dense(gen, stack, cfg.d_ff, d, device)
-        self.wr = dense(gen, stack, d, d, device)
+        self.mu_k = new_param(None, (*stack, d), device, fill=0.5,
+                              axes=(None,))
+        self.mu_r = new_param(None, (*stack, d), device, fill=0.5,
+                              axes=(None,))
+        self.wk = dense(gen, stack, d, cfg.d_ff, device, axes=("embed", "ff"))
+        self.wv = dense(gen, stack, cfg.d_ff, d, device, axes=("ff", "embed"))
+        self.wr = dense(gen, stack, d, d, device, axes=("embed", "heads"))
 
 
 def _token_shift(x: torch.Tensor, shift_state=None):
@@ -224,7 +241,7 @@ def rwkv6_time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
     w_log = -torch.exp(params["w_base"].float() + w_dyn.float())
 
     def heads(t):
-        return t.reshape(b, s, h, hd).transpose(1, 2)
+        return constrain(split_heads(t, h), "bhsk")
 
     rh, kh, vh = heads(r), heads(k), heads(v)
     # The decay rounds through the activation dtype, as the JAX package's
@@ -243,8 +260,8 @@ def rwkv6_time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
         if cfg.attention_impl == "pallas":
             y = linear_scan(rh, kh, vh, wh.to(dt_), u, mode="bonus")
         else:
-            y = linear_scan_chunked(rh, kh, vh, wh, u,
-                                    mode="bonus").to(dt_)
+            y = on_heads(lambda *a: linear_scan_chunked(*a, mode="bonus"),
+                         rh, kh, vh, wh, per_head=(u,)).to(dt_)
         new_cache = None
         if mode == "prefill":
             # The closed form h = Σ_s e^{Σ_{r>s} w_r} k_s ⊗ v_s over a
@@ -258,7 +275,7 @@ def rwkv6_time_mix(params, x: torch.Tensor, cfg: ModelConfig, *,
     y = y.transpose(1, 2).reshape(b, s, d)
     # Per-head group norm (RWKV's ln_x, population variance), then the
     # output gate.
-    y32 = y.float().reshape(b, s, h, hd)
+    y32 = splittable(y.float(), 2, h).reshape(b, s, h, hd)
     mean = y32.mean(-1, keepdim=True)
     var = y32.var(-1, keepdim=True, correction=0)
     y = ((y32 - mean) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)

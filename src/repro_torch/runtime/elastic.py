@@ -50,8 +50,9 @@ only carries it):
 * any other tensor is raw key data (``rng_impl`` null), as in the
   reference.
 
-``resume_on_mesh`` (resharding an LM training checkpoint onto a device
-mesh) needs the LM shardings and raises.
+``resume_on_mesh`` restores an LM training checkpoint (written unsharded
+by either package's ``Trainer``) onto a device mesh: parameters and AdamW
+moments laid out by ``param_shardings``, everything else replicated.
 """
 
 from __future__ import annotations
@@ -74,12 +75,56 @@ GENERATOR_IMPL = "torch.Generator:"
 
 def resume_on_mesh(directory: str, state_like, mesh, params_key="params",
                    step: int | None = None):
-    """Load the latest checkpoint and shard it for a device mesh: the LM
-    parameter and optimizer shardings (``param_shardings``), which come
-    with the LM training harness."""
-    raise NotImplementedError("resume_on_mesh shards LM parameters and "
-                              "optimizer moments (param_shardings), not "
-                              "ported yet (ROADMAP.md queue 1, item 10)")
+    """Load the latest checkpoint (or ``step``'s) and shard it for ``mesh``.
+
+    ``state_like``: the state's structure, freshly initialized:
+    ``state_like[params_key]`` a ``Params`` module (the shapes and the
+    logical axes), ``"opt"`` (optional) an ``AdamWState`` whose ``m`` and
+    ``v`` are ``{name: tensor}`` dicts, and other keys trees of tensors.
+    Every rank reads the whole checkpoint (the JAX package's format and
+    leaf names) and keeps its pieces, so nothing crosses the group.
+
+    Returns ``(state, manifest)``: ``state[params_key]`` and the moments as
+    ``{name: DTensor}`` laid out by ``param_shardings``, the step and every
+    other leaf replicated.
+    """
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shardlib
+    from repro_torch.runtime.trainer import flat, nested
+
+    shardlib.check_mesh(mesh)
+    params = state_like[params_key]
+    pshard = shardlib.param_shardings(params, mesh)
+    rep = shardlib.replicated(mesh)
+
+    def like(key, sub):
+        if key == params_key:
+            return nested(adamw.named(params))
+        if key == "opt":
+            return adamw.AdamWState(step=sub.step, m=nested(sub.m),
+                                    v=nested(sub.v))
+        return sub
+
+    def put(tree):
+        return {n: shardlib.distribute(t, pshard[n])
+                for n, t in flat(tree).items()}
+
+    def put_replicated(t):
+        return shardlib.distribute(t, rep)
+
+    tree, manifest = ckpt.restore(
+        directory, {k: like(k, v) for k, v in state_like.items()}, step,
+        device=mesh.device_type)
+    state = {}
+    for key, sub in tree.items():
+        if key == params_key:
+            state[key] = put(sub)
+        elif key == "opt":
+            state[key] = adamw.AdamWState(step=put_replicated(sub.step),
+                                          m=put(sub.m), v=put(sub.v))
+        else:
+            state[key] = shardlib.map_tree(put_replicated, sub)
+    return state, manifest
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,15 @@ AdamWState(step, m, v)}`` with its leaf names (``params_layers_attn_wq_0``,
 ``opt_.m_embed_0``, ``opt_.step``), so a checkpoint that either package's
 ``Trainer`` writes restores in the other's.  The step runs where the
 parameters live: the card unless the caller asks for the CPU.
+
+On a device mesh (``mesh=``, a ``DeviceMesh`` over every rank of the
+default process group) the step is the JAX package's sharded one, on
+DTensors: parameters and AdamW moments laid out by ``param_shardings``,
+the step count replicated and the batch by ``data_sharding_if_divisible``
+(``launch/dryrun.py``'s layout), the loss under ``activation_shardings``.
+Checkpoints stay mesh-agnostic: every rank gathers the full tensors and
+rank 0 alone writes them, in the same format, so either package restores
+them on any mesh or on one device (``runtime.elastic.resume_on_mesh``).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint as ckpt
@@ -30,11 +40,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shardlib
 from repro_torch.runtime.watchdog import StepWatchdog, WatchdogConfig
-
-NO_MESH = ("the LM shardings (parallel/sharding.py's param_shardings and "
-           "the sharded train step) are not ported yet (ROADMAP.md queue 1, "
-           "item 10): train on one device, mesh=None")
 
 
 @dataclasses.dataclass
@@ -57,29 +64,90 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     ``adamw.update``, which writes the parameters and the optimizer state
     in place.  The batch moves to ``device`` (the card unless the caller
     asks for the CPU); the parameters must be there and get
-    ``requires_grad``.  A ``mesh`` raises: the sharded step is still to
-    port."""
-    if mesh is not None:
-        raise NotImplementedError(NO_MESH)
+    ``requires_grad``.
+
+    With a ``mesh`` (``check_mesh``; its device type must be ``device``'s)
+    the parameters and moments are DTensors laid out as ``shard_params``
+    and ``shard_opt_state`` lay them out, and each batch tensor, which
+    every rank holds whole, is sharded on its batch dimension; each
+    gradient is reduced to its parameter's layout before the update, and
+    the metrics come back whole on every rank."""
     device = resolve_device(device)
+    if mesh is not None:
+        _check_mesh_device(mesh, device)
 
     def train_step(params, opt_state, batch):
         named = adamw.named(params)
         for p in named.values():
             p.requires_grad_(True)
-        batch = {k: v.to(device) for k, v in batch.items()}
-        loss, metrics = M.train_loss(params, batch, cfg)
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    allow_unused=True, materialize_grads=True)
-        params, opt_state, opt_metrics = adamw.update(
-            params, dict(zip(named, grads)), opt_state, opt_cfg)
+        if mesh is None:
+            batch = {k: v.to(device) for k, v in batch.items()}
+            loss, metrics = M.train_loss(params, batch, cfg)
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            params, opt_state, opt_metrics = adamw.update(
+                params, dict(zip(named, grads)), opt_state, opt_cfg)
+        else:
+            batch = {k: _shard_batch(v, mesh, device)
+                     for k, v in batch.items()}
+            with shardlib.activation_shardings(mesh):
+                loss, metrics = M.train_loss(params, batch, cfg)
+                grads = torch.autograd.grad(loss, list(named.values()),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+                # The FSDP reduce-scatter: each gradient (partial sums on
+                # the data axes) to its parameter's layout.
+                grads = [g.redistribute(p.device_mesh, p.placements)
+                         for g, p in zip(grads, named.values())]
+                params, opt_state, opt_metrics = adamw.update(
+                    params, dict(zip(named, grads)), opt_state, opt_cfg)
         metrics = {**metrics, **opt_metrics, "loss": loss}
-        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, {k: shardlib.full(v.detach())
+                                   for k, v in metrics.items()}
 
     return train_step
 
 
-def _nested(flat: dict) -> dict:
+def _check_mesh_device(mesh, device: torch.device) -> None:
+    """The mesh must span the group and share the step's device type (or
+    the step runs on ``meta`` tensors: a dry run)."""
+    shardlib.check_mesh(mesh)
+    if device.type not in (mesh.device_type, "meta"):
+        raise ValueError(f"a {mesh.device_type!r} mesh for a step on "
+                         f"{device}: the mesh's device type must be the "
+                         "step's")
+
+
+def _shard_batch(v, mesh, device):
+    """A batch tensor, which every rank holds whole, sharded on its batch
+    dimension (a DTensor stays as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        return v
+    return shardlib.distribute(
+        v.to(device), shardlib.data_sharding_if_divisible(mesh,
+                                                          tuple(v.shape)))
+
+
+def shard_opt_state(opt_state: adamw.AdamWState, params,
+                    mesh) -> adamw.AdamWState:
+    """AdamW state on ``mesh``: the step replicated, ``m`` and ``v`` laid
+    out as their parameters by ``param_shardings``.  Every rank must hold
+    the same whole state (nothing moves)."""
+    shard = shardlib.param_shardings(params, mesh)
+
+    def put(tree):
+        return {n: shardlib.distribute(t, shard[n])
+                for n, t in tree.items()}
+
+    return adamw.AdamWState(
+        step=shardlib.distribute(opt_state.step, shardlib.replicated(mesh)),
+        m=put(opt_state.m), v=put(opt_state.v))
+
+
+def nested(flat: dict) -> dict:
     """``{dotted name: tensor}`` as the JAX package's parameter tree: nested
     dicts, each tensor in a one-item list where its ``Param`` holds it (so
     its leaf name ends in ``_0``)."""
@@ -93,12 +161,12 @@ def _nested(flat: dict) -> dict:
     return tree
 
 
-def _flat(tree: dict, prefix: str = "") -> dict:
-    """``_nested``'s inverse."""
+def flat(tree: dict, prefix: str = "") -> dict:
+    """``nested``'s inverse."""
     out = {}
     for key, sub in tree.items():
         if isinstance(sub, dict):
-            out.update(_flat(sub, f"{prefix}{key}."))
+            out.update(flat(sub, f"{prefix}{key}."))
         else:
             out[f"{prefix}{key}"] = sub[0]
     return out
@@ -109,41 +177,59 @@ class Trainer:
     checkpoints every ``ckpt_every`` steps and restarts from the latest.
     Parameters from ``init_params`` with a generator seeded by
     ``tcfg.seed`` on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU); with a ``mesh`` every rank draws them whole and keeps its pieces
+    (``shard_params``), and the step is ``make_train_step``'s sharded
+    one."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  dcfg: DataConfig | None = None,
                  opt_cfg: adamw.AdamWConfig | None = None, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(NO_MESH)
         self.cfg = cfg
         self.tcfg = tcfg
         self.dcfg = dcfg or DataConfig()
         self.opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=tcfg.steps)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh_device(mesh, self.device)
         self.restarts = 0
 
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self.params = M.init_params(gen, cfg, self.device)
-        self.params.requires_grad_(True)
         self.opt_state = adamw.init(self.params)
+        if mesh is not None:
+            self.opt_state = shard_opt_state(self.opt_state, self.params,
+                                             mesh)
+            shardlib.shard_params(self.params, mesh)
+        self.params.requires_grad_(True)
         self.step = 0
-        self.train_step = make_train_step(cfg, self.opt_cfg,
+        self.train_step = make_train_step(cfg, self.opt_cfg, mesh=mesh,
                                           device=self.device)
         self.history: list[dict] = []
 
     # -- checkpointing --------------------------------------------------------
     def _state_tree(self):
+        """The checkpoint tree; on a mesh of whole tensors (a collective
+        every rank takes part in)."""
         s = self.opt_state
-        return {"params": _nested(adamw.named(self.params)),
-                "opt": adamw.AdamWState(step=s.step, m=_nested(s.m),
-                                        v=_nested(s.v))}
+        whole = {n: shardlib.full(p.detach())
+                 for n, p in adamw.named(self.params).items()}
+        return {"params": nested(whole),
+                "opt": adamw.AdamWState(
+                    step=shardlib.full(s.step),
+                    m=nested({n: shardlib.full(t) for n, t in s.m.items()}),
+                    v=nested({n: shardlib.full(t) for n, t in s.v.items()}))}
 
     def save(self):
-        ckpt.save(self.tcfg.ckpt_dir, self.step, self._state_tree(),
-                  metadata={"model": self.cfg.name, "data_step": self.step})
-        ckpt.prune(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
+        tree = self._state_tree()
+        if self.mesh is None or dist.get_rank() == 0:
+            ckpt.save(self.tcfg.ckpt_dir, self.step, tree,
+                      metadata={"model": self.cfg.name,
+                                "data_step": self.step})
+            ckpt.prune(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
+        if self.mesh is not None:
+            dist.barrier()
 
     def try_resume(self, step: int | None = None) -> bool:
         """Restore the newest verified checkpoint, or ``step``'s; False if
@@ -152,15 +238,25 @@ class Trainer:
             step = ckpt.latest_step(self.tcfg.ckpt_dir)
             if step is None:
                 return False
-        tree, manifest = ckpt.restore(self.tcfg.ckpt_dir, self._state_tree(),
-                                      step, device=self.device)
-        restored = _flat(tree["params"])
+        if self.mesh is not None:
+            from repro_torch.runtime.elastic import resume_on_mesh
+
+            state, manifest = resume_on_mesh(
+                self.tcfg.ckpt_dir, {"params": self.params,
+                                     "opt": self.opt_state}, self.mesh,
+                step=step)
+            restored, self.opt_state = state["params"], state["opt"]
+        else:
+            tree, manifest = ckpt.restore(self.tcfg.ckpt_dir,
+                                          self._state_tree(), step,
+                                          device=self.device)
+            restored = flat(tree["params"])
+            opt = tree["opt"]
+            self.opt_state = adamw.AdamWState(step=opt.step, m=flat(opt.m),
+                                              v=flat(opt.v))
         with torch.no_grad():
             for name, p in adamw.named(self.params).items():
                 p.copy_(restored[name])
-        opt = tree["opt"]
-        self.opt_state = adamw.AdamWState(step=opt.step, m=_flat(opt.m),
-                                          v=_flat(opt.v))
         self.step = manifest["metadata"]["data_step"]
         return True
 

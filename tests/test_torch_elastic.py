@@ -258,7 +258,7 @@ def test_stream_state_checkpoint_roundtrip(tmp_path):
     assert manifest["metadata"]["has_plasticity"] is False
 
 
-def test_argument_checks_and_unported_mesh_resume(tmp_path):
+def test_argument_checks(tmp_path):
     cfg = netlib.NetworkConfig(n_chips=2, capacity=64)
     params = netlib.init_feedforward(cfg, device=CPU)._replace(
         router=identity_router(2, device=CPU))
@@ -271,7 +271,3 @@ def test_argument_checks_and_unported_mesh_resume(tmp_path):
             elastic.run_supervised_stream(params, state, drives, cfg,
                                           fabric=plan, ckpt_dir=str(tmp_path),
                                           device=CPU, **kw)
-    # Resharding LM parameters onto a mesh comes with the LM shardings.
-    with pytest.raises(NotImplementedError,
-                       match=r"param_shardings.*queue 1, item 10"):
-        elastic.resume_on_mesh(str(tmp_path), {}, None)

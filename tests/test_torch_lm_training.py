@@ -429,13 +429,18 @@ def test_trainer_restarts_from_the_latest_checkpoint(tmp_path, monkeypatch):
         tt.run(5)                  # a second restart: over max_restarts
 
 
-def test_mesh_is_not_ported():
+def test_mesh_rank_count_must_match_group():
+    """A mesh of 8 devices with no process group (one rank) is refused
+    before anything is built."""
+    from repro_torch.parallel.sharding import MeshShape
+
     _, cfg = configs("smollm-135m")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrainer.make_train_step(cfg, adamw.AdamWConfig(), mesh=object(),
+    mesh = MeshShape(("data", "model"), (2, 4))
+    with pytest.raises(ValueError, match="8 devices.*1 rank"):
+        ttrainer.make_train_step(cfg, adamw.AdamWConfig(), mesh=mesh,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=object(),
+    with pytest.raises(ValueError, match="8 devices.*1 rank"):
+        ttrainer.Trainer(cfg, ttrainer.TrainerConfig(), mesh=mesh,
                          device="cpu")
 
 
