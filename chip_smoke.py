@@ -219,6 +219,23 @@ Phases, each reported on its own lines:
    each roofline row and its wall time; then the roofline of (b)'s shape
    on a 1 x 1 mesh, its flops equal to (b)'s count, its ``bound_s``
    beside the measured ms a step.
+21. The four example scripts (``examples/*_torch.py``), each through its
+   ``main`` in this process on the card: quickstart and multichip_snn at
+   their defaults, serve_lm with ``--arch qwen3-8b`` and ``--arch
+   rwkv6-7b`` (smoke configs, bf16, ``"pallas"``), train_lm at its
+   defaults (smollm-135m at full width and depth, 200 steps of batch 4 x
+   64) with ``--simulate-failure``, its checkpoints in a temporary
+   directory under ``build/``.  The scripts' own checks hold (event ==
+   dense and stream == loop, no drops, the latency budget's line, the
+   loss falls after the resume at step 100), each script's launches by
+   kernel body are checked and added to the kernels line, and one line a
+   script gives its wall time, its launches and its numbers.  What the
+   scripts launched is held against the plain versions: quickstart's chip
+   run again, its spikes routed through the exchange kernel and through
+   ``use_fused=False`` (bit for bit); serve_lm's prefill logits on the
+   same parameters and prompts through the kernels and through the plain
+   path (``attention_impl="xla"``), and the kernel alone at the smoke
+   prefill's shape against its plain version.
 
 Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
@@ -4785,6 +4802,210 @@ def phase20(launches: dict, gpu: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the example scripts
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = pathlib.Path(__file__).resolve().parent / "examples"
+# examples/quickstart.py's last line, as the JAX package prints it.
+LATENCY_LINE = ("latency budget: 2×MGT hops 300 ns + CDC 135 ns + pack/LUT "
+                "72 ns + arb 18 ns + 2×layer-2 380 ns + on-chip 45 ns = 950 "
+                "ns chip-to-chip (paper: 0.9–1.3 µs)")
+# serve_lm's defaults: 4 prompts of 16 tokens.
+SERVE_BATCH, SERVE_PROMPT = 4, 16
+# serve_lm's prefill logits through the kernels against the same config's
+# plain path (attention_impl "xla") on the card, same parameters and
+# prompts, both bf16: within this share of the largest plain logit.
+SMOKE_LOGIT_TOL = 2.0 ** -4
+SMOKE_LOGIT_REASON = ("bf16 activations: an attention or scan output one "
+                      "bf16 ulp apart (the plain scan keeps its decays in "
+                      "float32) moves every later rounding over 2 layers")
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+
+    path = EXAMPLES_DIR / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def body_counts() -> dict:
+    """The SNN and LM kernels' launches by body since their counts were
+    set to 0, those that launched, as ``{"kernel body": n}``."""
+    lm_bodies = {f"{k} {b}": n for k, w in (
+        ("flash_attention", flash_ops.flash_attention),
+        ("linear_scan", scan_ops.linear_scan))
+        for b, n in w.launches_by_path.items()}
+    return {k: n for k, n in {**snn_paths(), **lm_bodies}.items() if n}
+
+
+def expect_launches(name: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise AssertionError(f"phase 21: {name}: launches {counts}, "
+                             f"expected {want}")
+
+
+# Each script's check: (module, arguments, what main returned, launches by
+# kernel, launches by body) -> the numbers for phase 21's line.  Each
+# holds the original script's checks, the launches it must make, and
+# (quickstart, serve_lm) the kernels on what the script gave them against
+# their plain versions; multichip_snn's event == dense is that check.
+
+def quickstart_check(mod, args, out, counts, paths) -> str:
+    expect_launches("quickstart", counts, {"exchange": 1})  # one route_step
+    if out["dropped"] != [0] * 4 or out["spikes"] <= 0 \
+            or len(set(out["received"])) != 1:
+        raise AssertionError(f"quickstart: {out}")
+    if out["latency_line"] != LATENCY_LINE:
+        raise AssertionError(f"quickstart: {out['latency_line']!r}")
+    # The same chip run again, then its spikes routed through the exchange
+    # kernel and through the unfused plain composition.
+    cfg, params, stimulus = mod.inputs(DEV)
+    spikes, last = mod.emulate_chip(params, stimulus, cfg)
+    (fused, f_drops), (plain, p_drops) = (
+        mod.route_spikes(last, use_fused=f) for f in (True, False))
+    torch.cuda.synchronize()
+    for field, a, b in zip(("labels", "times", "valid", "drops"),
+                           (*fused, f_drops), (*plain, p_drops)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"quickstart: the exchange kernel's {field} "
+                                 f"differ from use_fused=False's")
+    if spikes != out["spikes"] or fused.count().tolist() != out["received"]:
+        raise AssertionError(f"quickstart again: {spikes} spikes, received "
+                             f"{fused.count().tolist()}; first run {out}")
+    return (f"{out['spikes']} output spikes over 50 steps, received "
+            f"{out['received']}, dropped {out['dropped']}; run again, the "
+            f"exchange kernel's ingress frames and drops == use_fused=False's"
+            f" bit for bit")
+
+
+def multichip_snn_check(mod, args, out, counts, paths) -> str:
+    # Two event streams and two per-step loops of T steps; the dense run,
+    # Fig 5 and training launch nothing.
+    expect_launches("multichip_snn", counts,
+                    {"exchange": 4 * mod.config().n_steps})
+    if not (out["event_equals_dense"] and out["stream_equals_loop"]):
+        raise AssertionError(f"multichip_snn: {out}")
+    if not np.isfinite(out["loss"]).all():
+        raise AssertionError(f"multichip_snn: losses {out['loss']}")
+    fig5 = ", ".join(f"{f['rate_hz'] / 1e6:.1f} MHz median "
+                     f"{f['median_ns']:.0f} / p99 {f['p99_ns']:.0f} ns"
+                     for f in out["fig5"])
+    return (f"event == dense {out['event_equals_dense']}, stream == loop "
+            f"{out['stream_equals_loop']}, drops {out['drops']}, 32 steps "
+            f"{out['loop_ms']:.1f} ms loop against {out['stream_ms']:.1f} "
+            f"ms streamed; Fig 5: {fig5}; {len(out['loss'])} train steps "
+            f"in {out['train_s']:.2f} s, loss {out['loss'][0]:.4f} → "
+            f"{out['loss'][-1]:.4f}")
+
+
+def serve_lm_check(mod, args, out, counts, paths) -> str:
+    arch = args[1]
+    cfg = mod.config(arch, True)
+    scan = cfg.family == "ssm"
+    # generate's warm pass and the timed one: two prefills; decode runs no
+    # kernel.
+    expect_launches(arch, counts, {"linear_scan" if scan
+                                   else "flash_attention": 2 * cfg.n_layers})
+    if out["launches"] != paths:
+        raise AssertionError(f"serve_lm {arch} printed launches "
+                             f"{out['launches']}, the wrappers counted "
+                             f"{paths}")
+    toks = np.array(out["tokens"])
+    if toks.shape != (SERVE_BATCH, 24) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"serve_lm {arch}: tokens {toks.shape}")
+    params, prompts = mod.inputs(cfg, SERVE_BATCH, SERVE_PROMPT, DEV)
+    with torch.no_grad():
+        got, want = (lm.prefill(params, {"tokens": prompts}, c)[0]
+                     for c in (cfg, dataclasses.replace(
+                         cfg, attention_impl="xla")))
+    torch.cuda.synchronize()
+    err = check_close(f"serve_lm {arch} smoke prefill logits, kernels vs "
+                      f"plain", got, want, 0.0,
+                      SMOKE_LOGIT_TOL * float(want.abs().max()),
+                      SMOKE_LOGIT_REASON, "21")
+    # The kernel alone at the smoke prefill's shape, as phases 2 and 17.
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    h, d = cfg.n_heads, cfg.head_dim_
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    if scan:
+        k_err = scan_check(f"{arch} smoke prefill: b{b} h{h} t{s} k{d} v{d} "
+                           f"bf16 bonus",
+                           rwkv_inputs(gen, b, h, s, d, torch.bfloat16,
+                                       views=True),
+                           "bonus", "channel_decay",
+                           (BF16_ULP, 1e-3, SCAN_TC_REASON), "21")
+    else:
+        hkv = cfg.n_kv_heads
+        k_err = flash_check(f"{arch} smoke prefill: b{b} h{h}/{hkv} s{s} "
+                            f"d{d} bf16 causal",
+                            *flash_inputs(gen, b, h, hkv, s, d,
+                                          torch.bfloat16, True),
+                            True, "wgmma", "21")
+    return (f"{arch} smoke config ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, head_dim {d}, vocab {cfg.vocab_size}; batch "
+            f"{b} x {s} + 24): prefill {out['prefill_ms']:.2f} ms, decode "
+            f"{out['decode_ms']:.1f} ms, {out['tokens_per_s']:.1f} tok/s; "
+            f"prefill logits vs the plain path max abs err {err:.3g}, the "
+            f"kernel at this shape {k_err:.3g}")
+
+
+def train_lm_check(mod, args, out, counts, paths) -> str:
+    expect_launches("train_lm", counts, {})          # training: no kernel
+    if out["resumed_at"] != 100 or not out["last"] < out["first"]:
+        raise AssertionError(f"train_lm: resumed at {out['resumed_at']}, "
+                             f"loss {out['first']} → {out['last']}")
+    return (f"{out['n_params'] / 1e6:.1f}M params, {len(out['losses'])} "
+            f"steps, resumed at step {out['resumed_at']}, loss (mean of 5) "
+            f"{out['first']:.4f} → {out['last']:.4f}")
+
+
+# (script, arguments, its check); each runs on the card by default.
+EXAMPLE_RUNS = (("quickstart", [], quickstart_check),
+                ("multichip_snn", [], multichip_snn_check),
+                ("serve_lm", ["--arch", "qwen3-8b"], serve_lm_check),
+                ("serve_lm", ["--arch", "rwkv6-7b"], serve_lm_check),
+                ("train_lm", ["--simulate-failure"], train_lm_check))
+
+
+def phase21(launches: dict, gpu: str) -> None:
+    import tempfile
+
+    CKPT_ROOT.mkdir(exist_ok=True)
+    for name, args, verify in EXAMPLE_RUNS:
+        mod = load_example(name)
+        with tempfile.TemporaryDirectory(dir=CKPT_ROOT,
+                                         prefix="phase21-") as tmp:
+            kw = {"ckpt_dir": tmp} if name == "train_lm" else {}
+            torch.cuda.synchronize()
+            reset_snn_counts()
+            reset_lm_counts()
+            before = other_launches()
+            t0 = time.perf_counter()
+            out = mod.main(args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {"merge_pack": ops.fused_merge_pack.launches,
+                  "exchange": ops.fused_exchange.launches, **lm_counts(),
+                  **{k: n - before[k] for k, n in other_launches().items()}}
+        counts = {k: n for k, n in counts.items() if n}
+        paths = body_counts()
+        for k, n in counts.items():
+            launches[k] += n
+        count_scan_bodies(launches)
+        summary = verify(mod, args, out, counts, paths)
+        cmd = " ".join([f"examples/{name}_torch.py", *args])
+        print(f"phase 21: {cmd}: wall {wall:.2f} s, launches by body "
+              f"{paths or 'none'}; {summary} [{gpu}]", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     gpu = card()
     print(f"phase 1: card {gpu}; torch {torch.__version__}, CUDA "
@@ -4830,6 +5051,7 @@ def main() -> None:
     timed_phase("18", lambda: phase18(launches, gpu))
     timed_phase("19", lambda: phase19(launches, gpu))
     timed_phase("20", lambda: phase20(launches, gpu))
+    timed_phase("21", lambda: phase21(launches, gpu))
 
     kernels = []
     for k, (source, replaces) in KERNEL_SOURCES.items():

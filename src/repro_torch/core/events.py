@@ -47,6 +47,10 @@ class EventFrame(NamedTuple):
     def capacity(self) -> int:
         return self.labels.shape[-1]
 
+    def count(self) -> torch.Tensor:
+        """Valid events per frame, int32[...] (the reference's dtype)."""
+        return self.valid.sum(-1, dtype=torch.int32)
+
 
 def empty_frame(capacity: int, batch_shape: tuple[int, ...] = (), *,
                 device=None) -> EventFrame:

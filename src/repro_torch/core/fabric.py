@@ -290,6 +290,17 @@ class FabricPlan:
                           else segs_u * lvl.fan_in)
         return tuple(out)
 
+    def identity_tables(self, n_labels: int | None = None, *, device=None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stacked identity fwd/rev LUTs for every leaf (testing/benchmarks).
+
+        Both are ``.expand`` views ``[n_nodes, table]`` of one table: every
+        row shares its storage, so copy before writing into them."""
+        tables = routing.identity_tables(n_labels, device=device)
+        n = self.n_nodes
+        return (tables.fwd.expand(n, tables.fwd.shape[0]),
+                tables.rev.expand(n, tables.rev.shape[0]))
+
     def describe(self) -> str:
         """One-line human summary ('12 x 2 x 4 = 96 leaves, ...'), the
         reference's string: stream checkpoints and recovery records carry
