@@ -12,9 +12,12 @@ Phases, each reported on its own lines:
    paths' shapes and in every variant: the exchange, egress-router and
    streaming-exchange kernels bit-exact (disabled LUT entries and capacity
    overflow included), the LIF step within 1e-6, the LM kernels within a
-   stated tolerance, each through both of its bodies (flash attention's
-   wgmma body against its blocked twin and the plain version, its f32
-   body; the scan's scalar-decay body against its twin and the chunked
+   stated tolerance, each through its bodies (flash attention's wgmma
+   body against its blocked twin and the plain version at d = 112, 128,
+   192 and 256, gemma-7b's shape at batch 1 among them; its decode body
+   against its split twin on whisper's q1 cross-attention, a GQA q16
+   call and a causal s16 call, each timed beside SDPA and its bound;
+   its f32 body; the scan's scalar-decay body against its twin and the chunked
    form, its per-channel body); device time per launch (CUDA-graph
    replay), the plain version's time, a library call's time where one
    computes the same function, and the bound.  The streaming exchange is
@@ -160,9 +163,10 @@ Phases, each reported on its own lines:
 
 17. The RWKV6, dense and MoE families: the linear scan's ``bonus`` mode at
    rwkv6-7b's shape (b4 h64 t2048, the per-channel body) and flash
-   attention at gemma-7b's d = 256 and smollm-135m's d = 64 (GQA group 3)
-   against their plain versions, with time per launch, bound and SDPA's
-   time; ``serve.generate`` at phase 5's batch, prompt and new tokens for
+   attention at the prefill shape of each attention config (gemma-7b's
+   d = 256, smollm-135m's d = 64 with GQA group 3, d = 128 with groups 4
+   and 6) against their plain versions, with the body, its KV tile, time
+   per launch, bound and SDPA's time; ``serve.generate`` at phase 5's batch, prompt and new tokens for
    rwkv6-7b, smollm-135m, gemma-7b, qwen3-8b and phi3-medium-14b at full
    width and depth and grok-1-314b at full width and 2 of its 64 layers
    (random float32 weights, bf16 activations), each with its launches by
@@ -176,7 +180,8 @@ Phases, each reported on its own lines:
    serving gives it for the first time, against its plain versions, with
    time per launch, bound and SDPA's time (MLA's d = 192 with V
    zero-padded from 128, b4 h128 s2048 causal; whisper's encoder, s1500
-   not causal; its cross-attention, q256 and q1 against 1500 frames);
+   not causal; its cross-attention, q256 and q1 against 1500 frames, q1
+   on the decode body);
    serving at batch 4 and 32 greedy new tokens, bf16 activations:
    deepseek-v2-236b at full width and 2 of 60 layers (the dense first
    layer and a MoE layer of 160 experts) through ``serve.generate``,
@@ -184,7 +189,8 @@ Phases, each reported on its own lines:
    and llava-next-mistral-7b at full depth (2048 prompt embeddings)
    through ``prefill``, ``_splice_prefill`` and ``decode_step``; each
    with prefill and decode times, peak device memory, launches by body
-   checked a prefill and a decode step, a profiler pass over one prefill;
+   checked a prefill and a decode step (whisper's decode step: 24 decode
+   launches, no wgmma), a profiler pass over one prefill;
    then each at 2 full-width float32 layers on the card against the CPU
    (logits, every cache leaf, whisper's encoder output, 4 greedy tokens,
    deepseek's dropped events).
@@ -237,7 +243,12 @@ Phases, each reported on its own lines:
    path (``attention_impl="xla"``), and the kernel alone at the smoke
    prefill's shape against its plain version.
 
-Each phase prints its wall time.  Any failure exits non-zero.  The last line is the result for the harness.
+Each phase prints its wall time.  Any failure exits non-zero.  The line
+before the card's name lists each kernel's launches on the main paths,
+time, plain time, library time and bound; the LM kernels' entries add
+their launches by body (flash attention's decode body must have served
+whisper's decode steps, its wgmma body the prefills).  The last line is
+the result for the harness.
 It needs the repository's ``src/`` beside it and a CUDA device; without
 either it fails before printing a result.
 """
@@ -280,7 +291,7 @@ from repro_torch.kernels import launcher  # noqa: E402
 from repro_torch.kernels import stream as cuda_stream  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_blocked_ref, attention_ref)
+    attention_ref)
 from repro_torch.kernels.lif_step import ops as lif_ops  # noqa: E402
 from repro_torch.kernels.lif_step.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
@@ -1228,8 +1239,10 @@ SCAN_F32_REASON = ("__expf and float32 sums and cumsums in another order "
 def flash_check(name: str, q, k, v, causal: bool, body: str,
                 phase: str = "2") -> float:
     """One flash-attention launch, which must take ``body``, against
-    attention_ref and (bf16) against attention_blocked_ref at the body's
-    KV tile, within the tolerances above.  Returns the max abs error."""
+    attention_ref and (bf16) against the body's plain twin (``ops.twin``:
+    attention_blocked_ref at the wgmma body's KV tile, attention_split_ref
+    at the decode body's splits), within the tolerances above.  Returns the
+    max abs error."""
     counts = flash_ops.flash_attention.launches_by_path
     got = one_body(lambda: flash_ops.flash_attention(q, k, v, causal=causal),
                    counts, body)
@@ -1242,11 +1255,12 @@ def flash_check(name: str, q, k, v, causal: bool, body: str,
     err = check_close(f"flash_attention {name} vs attention_ref", got, want,
                       BF16_ULP, p_tol, P_REASON, phase)
     del want
-    twin = attention_blocked_ref(q, k, v, causal=causal,
-                                 block_kv=flash_ops.block_kv_for(q.shape[-1]))
+    twin = flash_ops.twin(q, k, v, causal=causal)
+    twin_name = ("attention_split_ref" if body == "decode"
+                 else "attention_blocked_ref")
     err = max(err, check_close(
-        f"flash_attention {name} vs attention_blocked_ref", got, twin,
-        BF16_ULP, p_tol, P_REASON, phase))
+        f"flash_attention {name} vs {twin_name}", got, twin, BF16_ULP,
+        p_tol, P_REASON, phase))
     diff = (got.float() - twin.float()).abs()
     over = int((diff > BF16_ULP * twin.float().abs() + 1e-5).sum())
     print(f"phase {phase}: flash_attention {name}: {over} of {got.numel()} "
@@ -1257,6 +1271,24 @@ def flash_check(name: str, q, k, v, causal: bool, body: str,
         raise AssertionError(f"flash_attention {name}: {over} outputs "
                              f"beyond the bf16 tolerance")
     return err
+
+
+def flash_ms(q, k, v, causal: bool) -> float:
+    """Device time per flash-attention call (CUDA-graph replay)."""
+    return graph_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal),
+                    10, 5)
+
+
+def flash_kernel(q, k, v) -> str:
+    """The body a call takes, and for the wgmma body its kernel and tile."""
+    body = flash_ops.body_for(q, k, v)
+    if body == "decode":
+        n = flash_ops.decode_splits(q.shape[0] * q.shape[1], k.shape[2])
+        return (f"decode, {n} splits of {flash_ops.DECODE_BLOCK_KV}-key "
+                f"blocks, {n * q.shape[0] * q.shape[1]} blocks")
+    if body == "wgmma":
+        return f"wgmma, {flash_ops.block_kv_for(q.shape[-1])}-key tiles"
+    return body
 
 
 def scan_check(name: str, args, mode: str, body: str, tol,
@@ -1301,8 +1333,12 @@ def phase2_lm(results: dict) -> None:
          (2, 32, 8, 1024, 128, bf16, False), True, "wgmma"),
         ("ragged s2000: b1 h8 d112 bf16 causal",
          (1, 8, 8, 2000, 112, bf16, False), True, "wgmma"),
-        ("d256, 64-key tiles: b1 h4/2 s1000 bf16 not causal",
+        ("d256, 80-key tiles: b1 h4/2 s1000 bf16 not causal",
          (1, 4, 2, 1000, 256, bf16, False), False, "wgmma"),
+        ("gemma-7b's shape at batch 1: b1 h16 s2048 d256 bf16 causal",
+         (1, 16, 16, 2048, 256, bf16, False), True, "wgmma"),
+        ("d192, 112-key tiles: b1 h8/2 s1000 bf16 causal",
+         (1, 8, 2, 1000, 192, bf16, False), True, "wgmma"),
         ("f32: b2 h8 s1024 d112 causal", (2, 8, 8, 1024, 112, f32, False),
          True, "f32"),
         ("f32: b1 h4/2 s1000 d64 not causal", (1, 4, 2, 1000, 64, f32, False),
@@ -1314,6 +1350,32 @@ def phase2_lm(results: dict) -> None:
         err = max(err, flash_check(name, q, k, v, causal, body))
         if i == 0:
             main = (q, k, v)
+    # The decode body: whisper's decode cross-attention (one query row
+    # against 1500 frames, q, k, v transposed [b, s, h, d] views), a GQA
+    # call of 16 rows against ragged keys, and serve_lm's causal smoke
+    # prefill (s16, d16).
+    decode_cases = (
+        ("decode: whisper cross-attention b4 h16 q1 kv1500 d64 (views)",
+         (heads_view(gen, 4, 16, 1, 64, bf16),
+          heads_view(gen, 4, 16, 1500, 64, bf16),
+          heads_view(gen, 4, 16, 1500, 64, bf16)), False),
+        ("decode: GQA group 4, b2 h16/4 q16 kv1000 d128",
+         (heads_view(gen, 2, 16, 16, 128, bf16),
+          heads_view(gen, 2, 4, 1000, 128, bf16),
+          heads_view(gen, 2, 4, 1000, 128, bf16)), False),
+        ("decode: causal b4 h4/1 s16 d16 (serve_lm's smoke prefill)",
+         flash_inputs(gen, 4, 4, 1, 16, 16, bf16, True), True),
+    )
+    for name, (dq, dk, dv), causal in decode_cases:
+        err = max(err, flash_check(name, dq, dk, dv, causal, "decode"))
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+            dq, dk, dv, is_causal=causal, enable_gqa=True), 10, 5)
+        print(f"phase 2: flash_attention {name} ({flash_kernel(dq, dk, dv)})"
+              f": kernel {flash_ms(dq, dk, dv, causal):.4f} ms (graph "
+              f"replay), SDPA {sdpa:.4f} ms, bound "
+              f"{flash_bound(dq, dk, dv, causal)[0]:.4f} ms [{card()}]",
+              flush=True)
+    del decode_cases, dq, dk, dv
     q, k, v = main
     scale = 1.0 / q.shape[-1] ** 0.5
     b_ms, b_by = flash_bound(q, k, v)
@@ -1321,7 +1383,7 @@ def phase2_lm(results: dict) -> None:
     results["flash_attention"] = dict(
         max_abs_err=err,
         ms=graph_ms(lambda: flash_ops.flash_attention(q, k, v), 10, 5),
-        plain_ms=eager_ms(lambda: attention_blocked_ref(q, k, v), 2, 1),
+        plain_ms=eager_ms(lambda: flash_ops.twin(q, k, v), 2, 1),
         library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True), 10, 5),
         bound_ms=b_ms, bound_by=b_by,
@@ -1735,12 +1797,15 @@ def reset_lm_counts() -> None:
     reset_counts(scan_ops.linear_scan)
 
 
-def count_scan_bodies(launches: dict) -> None:
-    """Adds the linear scan's launches by body since the last reset to
-    ``launches`` (as "linear_scan <body>"), for the kernels line."""
-    for body, n in scan_ops.linear_scan.launches_by_path.items():
-        key = f"linear_scan {body}"
-        launches[key] = launches.get(key, 0) + n
+def count_lm_bodies(launches: dict) -> None:
+    """Adds the LM kernels' launches by body since the last reset to
+    ``launches`` (as "linear_scan <body>", "flash_attention <body>"), for
+    the kernels line."""
+    for name, wrapper in (("linear_scan", scan_ops.linear_scan),
+                          ("flash_attention", flash_ops.flash_attention)):
+        for body, n in wrapper.launches_by_path.items():
+            key = f"{name} {body}"
+            launches[key] = launches.get(key, 0) + n
 
 
 def phase5(launches: dict, gpu: str) -> None:
@@ -1773,14 +1838,14 @@ def phase5(launches: dict, gpu: str) -> None:
                              f"expected {want}")
     # Every prefill launch goes through the tensor-core bodies.
     paths = lm_paths()
-    want_paths = {"wgmma": 2 * groups, "f32": 0,
+    want_paths = {"decode": 0, "wgmma": 2 * groups, "f32": 0,
                   "scalar_decay": 2 * cfg.n_layers, "channel_decay": 0,
                   "per_channel": 0}
     if paths != want_paths:
         raise AssertionError(f"zamba2-7b generate: bodies {paths}, expected "
                              f"{want_paths}")
     launches.update(counts)
-    count_scan_bodies(launches)
+    count_lm_bodies(launches)
     if tokens.shape != (LM_BATCH, LM_NEW) or tokens.dtype != torch.int32 \
             or not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"bad tokens {tokens.dtype}{tuple(tokens.shape)}")
@@ -1804,7 +1869,7 @@ def phase5(launches: dict, gpu: str) -> None:
 
     print("phase 5: prefill: " + device_breakdown(
         one_prefill, per=1, unit="prefill",
-        ours=("attn_wgmma_kernel", "scan_scalar_decay_kernel")) + f" [{gpu}]",
+        ours=("attn_", "scan_scalar_decay_kernel")) + f" [{gpu}]",
         flush=True)
     logits = out["logits"]
     dec = serve._splice_prefill(
@@ -1814,14 +1879,15 @@ def phase5(launches: dict, gpu: str) -> None:
     print("phase 5: decode: " + device_breakdown(
         lambda: lm.decode_step(params, tok, dec, LM_PROMPT, cfg), per=1,
         unit="decode step",
-        ours=("attn_wgmma_kernel", "scan_scalar_decay_kernel"))
+        ours=("attn_", "scan_scalar_decay_kernel"))
         + f" [{gpu}]", flush=True)
     if tuple(logits.shape) != (LM_BATCH, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} finite="
                              f"{bool(torch.isfinite(logits).all())}")
-    if lm_paths() != {"wgmma": groups, "f32": 0, "scalar_decay": cfg.n_layers,
-                      "channel_decay": 0, "per_channel": 0}:
+    if lm_paths() != {"decode": 0, "wgmma": groups, "f32": 0,
+                      "scalar_decay": cfg.n_layers, "channel_decay": 0,
+                      "per_channel": 0}:
         raise AssertionError(f"one prefill launched {lm_paths()}")
     del params, logits, out, tokens, dec
     gc.collect()
@@ -1874,7 +1940,8 @@ def phase6() -> None:
     # float32 operands take the CUDA-core bodies: TF32 products would break
     # the 1e-3 logit tolerance.
     paths = lm_paths()
-    if paths["wgmma"] or paths["scalar_decay"] or paths["channel_decay"] \
+    if paths["wgmma"] or paths["decode"] or paths["scalar_decay"] \
+            or paths["channel_decay"] \
             or not (paths["f32"] and paths["per_channel"]):
         raise AssertionError(f"phase 6 float32 run went through {paths}")
     print(f"phase 6: zamba2-7b full width, {CHECK_LAYERS} layers, float32, "
@@ -3826,17 +3893,16 @@ def family_kernels(gpu: str) -> None:
         q, k, v = flash_inputs(gen, *shape)
         err = flash_check(name, q, k, v, True, "wgmma", "17")
         b_ms, b_by = flash_bound(q, k, v)
-        block = flash_ops.block_kv_for(q.shape[-1])
-        ms = graph_ms(lambda: flash_ops.flash_attention(q, k, v), 10, 5)
-        plain = eager_ms(lambda: attention_blocked_ref(q, k, v,
-                                                       block_kv=block), 2, 1)
+        ms = flash_ms(q, k, v, True)
+        plain = eager_ms(lambda: flash_ops.twin(q, k, v), 2, 1)
         sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 10, 5)
-        print(f"phase 17: flash_attention {name} (wgmma, {block}-key tiles, "
+        print(f"phase 17: flash_attention {name} ({flash_kernel(q, k, v)}, "
               f"v a transposed view): kernel {ms:.4f} ms (graph replay), "
-              f"plain {plain:.4f} ms (attention_blocked_ref), SDPA "
-              f"{sdpa:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max abs err "
-              f"{err:.3g} [{gpu}]", flush=True)
+              f"plain {plain:.4f} ms "
+              f"(attention_blocked_ref), SDPA {sdpa:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), max abs err {err:.3g} [{gpu}]",
+              flush=True)
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -3856,9 +3922,12 @@ def attn_launches(cfg, decode: bool = False) -> int:
 def family_bodies(cfg, decode: bool = False) -> dict:
     """Launches by body of one prefill (or one decode step): RWKV6 layers
     scan through the channel-decay body (bonus mode, prefill only),
-    attention runs through wgmma."""
+    attention runs through wgmma, a decode step's cross-attention (one
+    query row) through the decode body."""
     scan = cfg.n_layers if cfg.ssm == "rwkv6" and not decode else 0
-    return {"wgmma": attn_launches(cfg, decode), "f32": 0, "scalar_decay": 0,
+    attn = attn_launches(cfg, decode)
+    return {"decode": attn if decode else 0,
+            "wgmma": 0 if decode else attn, "f32": 0, "scalar_decay": 0,
             "channel_decay": scan, "per_channel": 0}
 
 
@@ -3940,7 +4009,7 @@ def serve_family(arch: str, depth, launches: dict, gpu: str,
                              f"{want}")
     for k, n in counts.items():
         launches[k] += n
-    count_scan_bodies(launches)
+    count_lm_bodies(launches)
     if tokens.shape != (LM_BATCH, LM_NEW) or tokens.dtype != torch.int32 \
             or not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"{arch}: bad tokens {tokens.dtype}"
@@ -3969,7 +4038,7 @@ def serve_family(arch: str, depth, launches: dict, gpu: str,
 
     reset_lm_counts()
     line = device_breakdown(one_prefill, per=1, unit="prefill",
-                            ours=("attn_wgmma_kernel",
+                            ours=("attn_",
                                   "scan_channel_decay_kernel"))
     print(f"phase {phase}: {arch} prefill: {line} [{gpu}]", flush=True)
     prefill_paths = lm_paths()
@@ -3981,9 +4050,11 @@ def serve_family(arch: str, depth, launches: dict, gpu: str,
     torch.cuda.synchronize()
     step_paths = lm_paths()
     print(f"phase {phase}: {arch} flash_attention launches: "
-          f"{prefill_paths['wgmma']} wgmma a prefill, {step_paths['wgmma']} "
-          f"a decode step (predicted {per_prefill['wgmma']} and "
-          f"{per_step['wgmma']})", flush=True)
+          f"{prefill_paths['wgmma']} wgmma and {prefill_paths['decode']} "
+          f"decode a prefill, {step_paths['wgmma']} wgmma and "
+          f"{step_paths['decode']} decode a decode step (predicted "
+          f"{per_prefill['wgmma']}, {per_prefill['decode']}, "
+          f"{per_step['wgmma']} and {per_step['decode']})", flush=True)
     if prefill_paths != per_prefill or step_paths != per_step:
         raise AssertionError(f"{arch}: one prefill launched {prefill_paths}, "
                              f"one decode step {step_paths}")
@@ -4115,8 +4186,8 @@ def family_card_vs_cpu(arch: str, phase: str = "17", new: int = 0) -> None:
             raise AssertionError(f"{arch} {name}: card vs CPU max abs err "
                                  f"{err} > {tol}")
     # float32 operands take the CUDA-core bodies, on the card side only.
-    want = {"wgmma": 0, "f32": 0, "scalar_decay": 0, "channel_decay": 0,
-            "per_channel": 0}
+    want = {"decode": 0, "wgmma": 0, "f32": 0, "scalar_decay": 0,
+            "channel_decay": 0, "per_channel": 0}
     if cfg.ssm == "rwkv6":
         want["per_channel"] = cfg.n_layers
     else:
@@ -4203,22 +4274,22 @@ def new_shape_kernels(gpu: str) -> None:
     for name, (q, k, v_raw), causal in cases:
         v = F.pad(v_raw, (0, q.shape[-1] - v_raw.shape[-1])) \
             if v_raw.shape[-1] != q.shape[-1] else v_raw
-        err = flash_check(name, q, k, v, causal, "wgmma", "18")
+        body = flash_ops.body_for(q, k, v)
+        err = flash_check(name, q, k, v, causal, body, "18")
         b_ms, b_by = flash_bound(q, k, v_raw, causal)
-        block = flash_ops.block_kv_for(q.shape[-1])
-        ms = graph_ms(lambda: flash_ops.flash_attention(q, k, v,
-                                                        causal=causal), 10, 5)
-        plain = eager_ms(lambda: attention_blocked_ref(
-            q, k, v, block_kv=block, causal=causal), 2, 1)
+        ms = flash_ms(q, k, v, causal)
+        plain = eager_ms(lambda: flash_ops.twin(q, k, v, causal=causal), 2, 1)
         # SDPA takes the unpadded V (dv != d) on the card.
         sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v_raw, is_causal=causal), 10, 5)
         note = "unpadded V" if v is not v_raw else "same operands"
-        print(f"phase 18: flash_attention {name} (wgmma, {block}-key tiles): "
+        twin_name = ("attention_split_ref" if body == "decode"
+                     else "attention_blocked_ref")
+        print(f"phase 18: flash_attention {name} ({flash_kernel(q, k, v)}): "
               f"kernel {ms:.4f} ms (graph replay), plain {plain:.4f} ms "
-              f"(attention_blocked_ref), SDPA {sdpa:.4f} ms ({note}), bound "
-              f"{b_ms:.4f} ms ({b_by}), max abs err {err:.3g} [{gpu}]",
-              flush=True)
+              f"({twin_name}), SDPA "
+              f"{sdpa:.4f} ms ({note}), bound {b_ms:.4f} ms ({b_by}), max "
+              f"abs err {err:.3g} [{gpu}]", flush=True)
         del v
     del q, k, v_raw, mla, frames, cases
     torch.cuda.empty_cache()
@@ -4946,7 +5017,7 @@ def serve_lm_check(mod, args, out, counts, paths) -> str:
                             f"d{d} bf16 causal",
                             *flash_inputs(gen, b, h, hkv, s, d,
                                           torch.bfloat16, True),
-                            True, "wgmma", "21")
+                            True, "decode", "21")
     return (f"{arch} smoke config ({cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, head_dim {d}, vocab {cfg.vocab_size}; batch "
             f"{b} x {s} + 24): prefill {out['prefill_ms']:.2f} ms, decode "
@@ -4997,7 +5068,7 @@ def phase21(launches: dict, gpu: str) -> None:
         paths = body_counts()
         for k, n in counts.items():
             launches[k] += n
-        count_scan_bodies(launches)
+        count_lm_bodies(launches)
         summary = verify(mod, args, out, counts, paths)
         cmd = " ".join([f"examples/{name}_torch.py", *args])
         print(f"phase 21: {cmd}: wall {wall:.2f} s, launches by body "
@@ -5073,6 +5144,17 @@ def main() -> None:
         if not bodies[body]:
             raise AssertionError(f"linear_scan's {body} body never launched "
                                  f"on the main path")
+    # flash_attention's: wgmma on every prefill (phases 5, 17, 18), decode
+    # on whisper's decode steps (phase 18: 24 a step, 792 in all) and
+    # serve_lm's smoke prefills (phase 21).
+    bodies = {b: launches.get(f"flash_attention {b}", 0)
+              for b in flash_ops.flash_attention.launches_by_path}
+    next(e for e in kernels if e["name"] == "flash_attention").update(
+        bodies=bodies)
+    for body in ("wgmma", "decode"):
+        if not bodies[body]:
+            raise AssertionError(f"flash_attention's {body} body never "
+                                 f"launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,23 @@
 
 ``flash_attention`` runs the plain version (``ref.attention_ref``) on CPU
 tensors and launches ``csrc/flash_attention.cu`` on CUDA tensors.  The
-kernel has two bodies, picked by ``body_for``:
+kernel has three bodies, picked by ``body_for`` from the operands' type and
+the number of query rows:
 
-* ``"wgmma"`` when q, k and v are all bfloat16: tensor cores, TMA loads,
-  P rounded to bf16 before P·V (its plain twin is
-  ``ref.attention_blocked_ref`` at ``block_kv_for(d)``);
+* ``"decode"`` when q, k and v are all bfloat16 and seq_q <= 16
+  (``DECODE_MAX_Q``): split-KV flash decoding, ``decode_splits`` runs of
+  whole 128-key blocks a (batch, q-head), ``mma.sync``, combined in one
+  launch (its plain twin is ``ref.attention_split_ref``);
+* ``"wgmma"`` for the other all-bfloat16 calls: a warp-specialised kernel
+  (a TMA producer warpgroup, two consumer warpgroups), P rounded to bf16
+  before P·V (its plain twin is ``ref.attention_blocked_ref`` at
+  ``block_kv_for(d)``);
 * ``"f32"`` for every other operand type: the CUDA-core body, products and
   P in float32.
 
-This is a dispatch by type, not a fallback: a bf16 call whose tensor-core
-launch fails raises.  A call that would need a gradient raises on either
-device (``kernels.refuse_autograd``).  Each launch counts in
+This is a dispatch by type and shape, not a fallback: a call whose launch
+fails raises.  A call that would need a gradient raises on either device
+(``kernels.refuse_autograd``).  Each launch counts in
 ``flash_attention.launches`` and in
 ``flash_attention.launches_by_path[body]``.
 """
@@ -27,7 +33,8 @@ import torch
 from repro_torch.kernels import (FLOAT, INT, PTR, check, check_row_layout,
                                  dtype_code, launcher, on_card,
                                  refuse_autograd, stream)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_blocked_ref, attention_ref, attention_split_ref)
 
 BLOCK_Q = BLOCK_KV = 64          # the f32 body's tiles
 MAX_HEAD_DIM = 256
@@ -40,18 +47,82 @@ def smem_bytes(head_dim: int) -> int:
     return 4 * (3 * BLOCK_Q * (head_dim + 1) + BLOCK_Q * (BLOCK_KV + 1))
 
 
+DECODE_MAX_Q = 16                # query rows of one mma.sync m16 tile
+DECODE_BLOCK_KV = 128            # the decode body's tile: the TPU kernel's
+SMS = 132                        # streaming multiprocessors of an H100
+DECODE_BLOCKS_PER_SM = 3         # two-tile decode blocks an SM holds at
+                                 # d <= 64 (67.6 KB of shared memory each)
+DECODE_MAX_SPLITS = 64           # the kernel's kMaxSplits
+
+
 def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel body a call runs: ``"wgmma"`` if q, k and v are all
-    bfloat16, else ``"f32"``."""
-    return ("wgmma" if q.dtype == k.dtype == v.dtype == torch.bfloat16
-            else "f32")
+    """The kernel body a call runs: ``"decode"`` if q, k and v are all
+    bfloat16 and q has at most ``DECODE_MAX_Q`` rows, ``"wgmma"`` for other
+    all-bfloat16 calls, else ``"f32"``."""
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        return "f32"
+    return "decode" if q.shape[2] <= DECODE_MAX_Q else "wgmma"
 
 
 def block_kv_for(head_dim: int) -> int:
     """The wgmma body's KV tile: 128 keys (the Pallas kernel's
-    DEFAULT_BLOCK_KV), 64 where d > 128 leaves no room for two 128-key
-    stages of K and V in shared memory."""
-    return 128 if head_dim <= 128 else 64
+    DEFAULT_BLOCK_KV) up to d = 128.  Above, the largest tile with two
+    stages of K and V beside the 128-row Q tile in the 232448 bytes of
+    shared memory a block may use (64-column 128-byte rows; 1 KB of
+    alignment slack and 128 B of barriers):
+
+    * d <= 192: Q 48 KB + 2 · (K + V) of 112 keys (2 · 2 · 112 · 384 B =
+      168 KB) = 217 KB (128 keys: 241 KB);
+    * d <= 256: Q 64 KB + 2 · 2 · 80 · 512 B = 160 KB = 225 KB (96 keys:
+      257 KB)."""
+    if head_dim <= 128:
+        return 128
+    return 112 if head_dim <= 192 else 80
+
+
+def decode_splits(bh: int, seq_kv: int) -> int:
+    """Splits of the decode body's keys a (batch, q-head), ``bh`` of them:
+    enough blocks to fill the card's SMs ``DECODE_BLOCKS_PER_SM`` deep, at
+    most ``DECODE_MAX_SPLITS``, each a run of whole 128-key blocks and none
+    empty (``ref.split_bounds`` gives the same runs).  At whisper's decode
+    cross-attention (64 heads, 12 blocks of keys) that is 6 splits of two
+    blocks, 384 blocks in one wave, each copying its second tile while it
+    computes its first."""
+    blocks = max(1, -(-seq_kv // DECODE_BLOCK_KV))
+    want = min(DECODE_MAX_SPLITS, -(-SMS * DECODE_BLOCKS_PER_SM // max(1, bh)))
+    per = -(-blocks // min(blocks, want))
+    return -(-blocks // per)
+
+
+def twin(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, sm_scale: float | None = None
+         ) -> torch.Tensor:
+    """The plain twin of the tensor-core body a bf16 call takes, at that
+    body's blocks and splits."""
+    if body_for(q, k, v) == "decode":
+        n = decode_splits(q.shape[0] * q.shape[1], k.shape[2])
+        return attention_split_ref(q, k, v, block_kv=DECODE_BLOCK_KV,
+                                   n_splits=n, causal=causal,
+                                   sm_scale=sm_scale)
+    return attention_blocked_ref(
+        q, k, v, block_kv=block_kv_for(q.shape[-1]), causal=causal,
+        sm_scale=sm_scale)
+
+
+_COUNTERS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The decode body's per-(batch, q-head) counters for launches on the
+    current stream of ``device``: zeros, which every launch leaves zero
+    (its last block resets them).  Launches on one stream run one after
+    the other; each stream has its own counters."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def tma_strides(t: torch.Tensor, name: str) -> tuple[int, ...]:
@@ -105,18 +176,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     body = body_for(q, k, v)
-    if body == "wgmma":
-        strides = (ctypes.c_int64 * 12)(*tma_strides(q, "q"),
-                                        *tma_strides(k, "k"),
-                                        *tma_strides(v, "v"))
-        if seq_kv == 0:
-            return out.zero_()           # no key: acc / 1 = 0, as the TPU's
-        launch = launcher("flash_attention", "flash_attention_wgmma_launch",
-                          (PTR,) * 4 + (INT,) * 6 + (PTR, FLOAT, INT, PTR))
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     batch, q_heads, kv_heads, seq_q, seq_kv, d, strides,
-                     float(sm_scale), int(causal), stream())
-    else:
+    if body == "f32":
         strides = (ctypes.c_int64 * 12)(*q.stride(), *k.stride(),
                                         *v.stride())
         launch = launcher("flash_attention", "flash_attention_launch",
@@ -126,6 +186,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      dtype_code(q), dtype_code(k), dtype_code(v),
                      dtype_code(out), batch, q_heads, kv_heads, seq_q, seq_kv,
                      d, strides, float(sm_scale), int(causal), stream())
+    elif seq_kv == 0:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            check_row_layout(t, name)
+        return out.zero_()               # no key: acc / 1 = 0, as the TPU's
+    elif body == "decode":
+        err = _launch_decode(q, k, v, out, causal, float(sm_scale))
+    else:
+        strides = (ctypes.c_int64 * 12)(*tma_strides(q, "q"),
+                                        *tma_strides(k, "k"),
+                                        *tma_strides(v, "v"))
+        launch = launcher("flash_attention", "flash_attention_wgmma_launch",
+                          (PTR,) * 4 + (INT,) * 6 + (PTR, FLOAT, INT, PTR))
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     batch, q_heads, kv_heads, seq_q, seq_kv, d, strides,
+                     float(sm_scale), int(causal), stream())
     check(err, f"flash_attention ({body})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[body] += 1
@@ -133,4 +208,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_path = {"wgmma": 0, "f32": 0}
+flash_attention.launches_by_path = {"decode": 0, "wgmma": 0, "f32": 0}
+
+
+def _launch_decode(q, k, v, out, causal: bool, sm_scale: float) -> int:
+    strides = (ctypes.c_int64 * 12)(*tma_strides(q, "q"),
+                                    *tma_strides(k, "k"),
+                                    *tma_strides(v, "v"))
+    batch, q_heads, seq_q, d = q.shape
+    seq_kv = k.shape[2]
+    n_splits = decode_splits(batch * q_heads, seq_kv)
+    part = torch.empty(batch * q_heads * n_splits * seq_q * (d + 2)
+                       if n_splits > 1 else 0, dtype=torch.float32,
+                       device=q.device)
+    counters = _split_counters(q.device, batch * q_heads)
+    launch = launcher("flash_attention", "flash_attention_decode_launch",
+                      (PTR,) * 6 + (INT,) * 6 + (PTR, FLOAT, INT, INT, PTR))
+    return launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  part.data_ptr(), counters.data_ptr(), batch, q_heads,
+                  k.shape[1], seq_q, seq_kv, d, strides, sm_scale,
+                  int(causal), n_splits, stream())

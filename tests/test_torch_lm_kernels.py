@@ -24,7 +24,9 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import check_row_layout
 from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.flash_attention.ref import (attention_blocked_ref,
-                                                     attention_ref)
+                                                     attention_ref,
+                                                     attention_split_ref,
+                                                     split_bounds)
 from repro_torch.kernels.linear_scan import ops as tscan
 from repro_torch.kernels.linear_scan import ref as tscan_ref
 from repro_torch.models import attention as tattn
@@ -100,29 +102,36 @@ def test_flash_attention_bf16_in_q_dtype():
 
 
 # (batch, q_heads, kv_heads, seq, head_dim, causal): the Pallas wrapper's
-# block_kv is 128 from 128 keys on, so P rounds at the same boundaries.
+# block_kv is 128 from 128 keys on, so up to d = 128 P rounds at the same
+# boundaries; d = 192 and 256 take the warp-specialised body's 112- and
+# 80-key tiles (block_kv_for), ragged against them and against 128.
 BLOCKED_SHAPES = [(1, 4, 2, 300, 112, True), (1, 2, 2, 256, 64, False),
-                  (2, 4, 4, 130, 16, True), (1, 2, 1, 200, 112, False)]
+                  (2, 4, 4, 130, 16, True), (1, 2, 1, 200, 112, False),
+                  (1, 2, 1, 190, 192, True), (1, 2, 2, 250, 192, False),
+                  (1, 4, 2, 200, 256, True), (1, 2, 2, 170, 256, False)]
 
 
 @pytest.mark.parametrize("shape", BLOCKED_SHAPES)
 def test_attention_blocked_ref_matches_pallas(shape):
-    """The wgmma body's plain twin against the Pallas kernel in interpret
-    mode at block_kv = 128.  float32: P's cast to v's type is exact, so
-    within 1e-5.  bf16 inputs: the Pallas body casts v to float32 first, so
-    in interpret mode its P stays float32 while the twin rounds P to bf16 as
+    """The wgmma body's plain twin, at the body's KV tile (block_kv_for),
+    against the Pallas kernel in interpret mode at block_kv = 128.
+    float32: P's cast to v's type is exact, and an online softmax over
+    other block boundaries differs only in float32 rounding, so within
+    1e-5.  bf16 inputs: the Pallas body casts v to float32 first, so in
+    interpret mode its P stays float32 while the twin rounds P to bf16 as
     the card's tensor cores take it; each weight moves by at most half a
-    bf16 ulp (2^-8 of itself) and l sums the unrounded weights, so the
-    output moves by at most 2^-8·max|v|, beside one bf16 ulp of rounding
-    of each side's output (2^-7·|ref|)."""
+    bf16 ulp (2^-8 of itself, whatever the block's running max) and l sums
+    the unrounded weights, so the output moves by at most 2^-8·max|v|,
+    beside one bf16 ulp of rounding of each side's output (2^-7·|ref|)."""
     b, hq, hkv, s, d, causal = shape
+    block = tflash.block_kv_for(d)
     q, k, v = _qkv(np.random.default_rng(sum(shape[:5])), b, hq, hkv, s, s, d)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     _close("f32", attention_blocked_ref(*map(torch.from_numpy, (q, k, v)),
-                                        causal=causal),
+                                        causal=causal, block_kv=block),
            jflash(jq, jk, jv, causal=causal, interpret=True))
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
-    got = attention_blocked_ref(tq, tk, tv, causal=causal)
+    got = attention_blocked_ref(tq, tk, tv, causal=causal, block_kv=block)
     assert got.dtype == torch.bfloat16
     want = np.asarray(jflash(*(jnp.asarray(t.float().numpy())
                                .astype(jnp.bfloat16) for t in (tq, tk, tv)),
@@ -134,16 +143,18 @@ def test_attention_blocked_ref_matches_pallas(shape):
 
 
 def test_flash_attention_body_dispatch():
-    """The wrapper's rule: all-bf16 operands take the wgmma body, any other
-    mix the f32 body; the wgmma body's TMA layout rule raises for a
-    non-contiguous head dim, a stride off the 16-byte granule or a
+    """The wrapper's rule: all-bf16 operands with more than 16 query rows
+    take the wgmma body, any other mix the f32 body; the wgmma body's KV
+    tile by head dim; the TMA layout rule of the tensor-core bodies raises
+    for a non-contiguous head dim, a stride off the 16-byte granule or a
     misaligned base, and replaces the strides of size-1 dims."""
     bf, f32 = torch.bfloat16, torch.float32
-    x = torch.zeros((1, 2, 8, 16))
+    x = torch.zeros((1, 2, 32, 16))
     assert tflash.body_for(x.to(bf), x.to(bf), x.to(bf)) == "wgmma"
     for dtypes in ((f32, f32, f32), (bf, f32, bf), (bf, bf, f32)):
         assert tflash.body_for(*(x.to(t) for t in dtypes)) == "f32"
-    assert tflash.block_kv_for(112) == 128 and tflash.block_kv_for(256) == 64
+    assert tflash.block_kv_for(112) == 128 and tflash.block_kv_for(256) == 80
+    assert tflash.block_kv_for(192) == 112
     # zamba2's v: a transposed view [b, s, h, d] -> [b, h, s, d].
     v = torch.zeros((2, 16, 4, 112), dtype=bf).transpose(1, 2)
     assert tflash.tma_strides(v, "v") == (16 * 4 * 112, 112, 4 * 112, 1)
@@ -417,6 +428,118 @@ def test_cpu_tensors_never_launch():
 
 # ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions (run on a card only)
+def test_flash_attention_decode_dispatch():
+    """The decode body's rule: all-bf16 operands with at most 16 query
+    rows, whatever the keys; 17 rows or another type go elsewhere."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def qkv(sq, skv, types=(bf, bf, bf)):
+        return (torch.zeros((2, 4, sq, 64), dtype=types[0]),
+                torch.zeros((2, 2, skv, 64), dtype=types[1]),
+                torch.zeros((2, 2, skv, 64), dtype=types[2]))
+    for sq, skv in ((1, 1), (1, 1500), (16, 16), (16, 4096), (7, 300)):
+        assert tflash.body_for(*qkv(sq, skv)) == "decode"
+    assert tflash.body_for(*qkv(17, 1500)) == "wgmma"
+    assert tflash.body_for(*qkv(1, 1500, (f32, f32, f32))) == "f32"
+    assert tflash.body_for(*qkv(1, 1500, (bf, bf, f32))) == "f32"
+    assert tflash.DECODE_MAX_Q == 16
+
+
+# (batch · q_heads, seq_kv) -> splits: whisper's decode cross-attention
+# (b4 h16, 1500 frames: 12 blocks of 128, two a split, 384 blocks), a
+# single head (one block a split), the smoke prefill (one block), more
+# heads than the card's SMs take three deep, ragged lengths, and a long
+# cache at the cap of 64 splits (782 blocks in runs of 13).
+DECODE_SPLITS = [((64, 1500), 6), ((1, 1500), 12), ((16, 16), 1),
+                 ((4, 300), 3), ((1024, 1500), 1), ((512, 2048), 1),
+                 ((132, 4096), 3), ((64, 1), 1), ((2, 129), 2),
+                 ((1, 100_000), 61)]
+
+
+@pytest.mark.parametrize("args, want", DECODE_SPLITS)
+def test_decode_splits(args, want):
+    """``decode_splits`` fills the card three blocks deep, never splits finer
+    than one 128-key block nor into more than 64 runs, and leaves no split
+    empty: ``split_bounds``
+    cuts the keys into exactly that many runs of whole blocks."""
+    bh, seq_kv = args
+    n = tflash.decode_splits(bh, seq_kv)
+    assert n == want
+    bounds = split_bounds(seq_kv, tflash.DECODE_BLOCK_KV, n)
+    assert len(bounds) == n
+    assert bounds[0][0] == 0 and bounds[-1][1] == seq_kv
+    assert all(lo % tflash.DECODE_BLOCK_KV == 0 and lo < hi
+               for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+
+# (seq_q, seq_kv, group, causal): 1, 4 and 16 query rows against 1, 300 and
+# 1500 keys (ragged at 128), GQA groups 1 and 4; causal with seq_q ==
+# seq_kv <= 16, as the kernel takes it.
+SPLIT_CASES = ([(sq, skv, grp, False) for sq in (1, 4, 16)
+                for skv in (1, 300, 1500) for grp in (1, 4)]
+               + [(s, s, grp, True) for s in (1, 5, 16) for grp in (1, 4)])
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "q{}-kv{}-g{}-{}".format(
+                             *c[:3], "causal" if c[3] else "full"))
+def test_attention_split_ref_matches_pallas(case):
+    """The decode body's plain twin, at the body's splits
+    (``decode_splits``) and at 5, against the Pallas kernel in interpret
+    mode (one pass over 128-key blocks, no split).  float32: P's cast is
+    exact and the combine rescales each split's (acc, l) by exp(m_i - M),
+    which differs from one running max only in float32 rounding: within
+    1e-5.  bf16 inputs: the twin rounds P to bf16 relative to its split's
+    running max, the Pallas body in interpret mode keeps P in float32;
+    each weight moves by at most half a bf16 ulp (2^-8 of itself) and l
+    sums the unrounded weights, so the output moves by at most
+    2^-8·max|v|, beside one bf16 ulp of each side's output (2^-7·|ref|) —
+    the bound of the blocked twin's test."""
+    sq, skv, group, causal = case
+    b, hq, d = 2, 4, 64
+    q, k, v = _qkv(np.random.default_rng(sq * 7919 + skv * 31 + group),
+                   b, hq, hq // group, sq, skv, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want32 = jflash(jq, jk, jv, causal=causal, interpret=True)
+    bq, bk, bv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    want16 = np.asarray(jflash(*(jnp.asarray(t.float().numpy())
+                                 .astype(jnp.bfloat16) for t in (bq, bk, bv)),
+                               causal=causal, interpret=True)
+                        ).astype(np.float32)
+    bound = (2.0 ** -7 * np.abs(want16)
+             + 2.0 ** -8 * float(bv.float().abs().max()))
+    for n in (tflash.decode_splits(b * hq, skv), 5):
+        _close(f"f32, {n} splits", attention_split_ref(
+            *map(torch.from_numpy, (q, k, v)), n_splits=n, causal=causal),
+            want32)
+        got = attention_split_ref(bq, bk, bv, n_splits=n, causal=causal)
+        assert got.dtype == torch.bfloat16
+        diff = np.abs(got.float().numpy() - want16)
+        assert np.isfinite(got.float().numpy()).all()
+        assert (diff <= bound).all(), (n, float((diff - bound).max()))
+
+
+def test_flash_attention_twin_by_body():
+    """``twin`` picks the plain twin of the body a bf16 call takes: the
+    split twin at the body's splits for <= 16 rows, the blocked twin at the
+    body's tile otherwise."""
+    rng = np.random.default_rng(33)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 2, 4, 2, 3, 700, 64))
+    n = tflash.decode_splits(8, 700)
+    assert n == 6
+    torch.testing.assert_close(
+        tflash.twin(q, k, v, causal=False),
+        attention_split_ref(q, k, v, n_splits=n, causal=False), rtol=0,
+        atol=0)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(rng, 1, 2, 2, 90, 90, 256))
+    torch.testing.assert_close(
+        tflash.twin(q, k, v), attention_blocked_ref(q, k, v, block_kv=80),
+        rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -499,10 +622,11 @@ def test_flash_attention_wgmma_body_matches_plain(cuda_device, shape, causal):
 # frames (ragged at 64- and 128-key tiles), its decoder's cross-attention
 # 256 prompt rows and single decode rows against them.
 FAMILY_ATTN_CASES = [
-    ("mla d192, v 128 zero-padded", (1, 4, 4, 300, 300, 192), 128, True),
-    ("encoder s1500 d64", (1, 2, 2, 1500, 1500, 64), 64, False),
-    ("cross q256 kv1500 d64", (1, 2, 2, 256, 1500, 64), 64, False),
-    ("cross q1 kv1500 d64", (2, 2, 2, 1, 1500, 64), 64, False),
+    ("mla d192, v 128 zero-padded", (1, 4, 4, 300, 300, 192), 128, True,
+     "wgmma"),
+    ("encoder s1500 d64", (1, 2, 2, 1500, 1500, 64), 64, False, "wgmma"),
+    ("cross q256 kv1500 d64", (1, 2, 2, 256, 1500, 64), 64, False, "wgmma"),
+    ("cross q1 kv1500 d64", (2, 2, 2, 1, 1500, 64), 64, False, "decode"),
 ]
 
 
@@ -511,13 +635,13 @@ FAMILY_ATTN_CASES = [
 @pytest.mark.parametrize("case", FAMILY_ATTN_CASES, ids=lambda c: c[0])
 def test_flash_attention_family_shapes_match_plain(cuda_device, case, dtype):
     """Each body at the new shapes against ``attention_ref`` on the unpadded
-    V: the wgmma body (bf16) within the tolerance of the test above, the
-    f32 body within 1e-5."""
-    _, shape, dv, causal = case
+    V: the tensor-core bodies (bf16: wgmma, or decode for one query row)
+    within the tolerance of the test above, the f32 body within 1e-5."""
+    _, shape, dv, causal, bf16_body = case
     q, k, v = (torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
                for a in _qkv(np.random.default_rng(sum(shape)), *shape))
     v = v[..., :dv]
-    body = "wgmma" if dtype == "bfloat16" else "f32"
+    body = bf16_body if dtype == "bfloat16" else "f32"
     before = dict(tflash.flash_attention.launches_by_path)
     got = tflash.flash_attention(
         q, k, torch.nn.functional.pad(v, (0, shape[-1] - dv)),
@@ -532,6 +656,93 @@ def test_flash_attention_family_shapes_match_plain(cuda_device, case, dtype):
         torch.testing.assert_close(
             got.float(), want.float(), rtol=2.0 ** -7,
             atol=2.0 ** -8 * float(v.float().abs().max()))
+
+
+def _launch_one(q, k, v, body, **kw):
+    """One flash_attention call, which must launch once through ``body``."""
+    before = dict(tflash.flash_attention.launches_by_path)
+    got = tflash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches_by_path == \
+        {**before, body: before[body] + 1}
+    return got
+
+
+def _bf16_close(got, want, v):
+    """One bf16 ulp of each output and 2^-8·max|v| for P's rounding, as in
+    test_flash_attention_wgmma_body_matches_plain."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2.0 ** -8 * float(v.float().abs().max()))
+
+
+# The wgmma body above d = 128: ragged lengths against its 112- and 80-key
+# tiles and the 128-row Q tile, GQA groups 1 and 2, causal and not, and
+# cross-length calls (not causal).
+WIDE_HEAD_CASES = ([((1, 4, 2, s, s, d), causal) for d in (192, 256)
+             for s in (65, 190, 1000) for causal in (True, False)]
+            + [((2, 2, 2, 300, 129, 256), False),
+               ((1, 4, 4, 97, 1000, 192), False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, causal", WIDE_HEAD_CASES, ids=str)
+def test_flash_attention_wgmma_body_wide_heads(cuda_device, shape, causal):
+    """The wgmma body at d = 192 and 256 against its blocked twin
+    (block_kv_for's tile) and the plain version."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16)
+               for a in _qkv(np.random.default_rng(sum(shape)), *shape))
+    got = _launch_one(q, k, v, "wgmma", causal=causal)
+    for want in (tflash.twin(q, k, v, causal=causal),
+                 attention_ref(q, k, v, causal=causal)):
+        _bf16_close(got, want, v)
+
+
+def _heads_view(rng, b, h, s, d):
+    """A [b, h, s, d] transposed view of a [b, s, h, d] tensor, as
+    ``_split_heads`` hands q, k and v to the kernel."""
+    return (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                             .astype(np.float32)).to(torch.bfloat16)
+            .transpose(1, 2))
+
+
+# (seq_q, seq_kv, group, causal, d): 1 to 16 query rows, 1 to 1500 keys
+# (ragged at 128), GQA groups 1 and 4, causal at seq_q == seq_kv, the five
+# head-dim instantiations (16, 32, 64, 128, 256; 40 and 112 padded), and
+# 9000 or 5000 keys, where a split holds several 128-key tiles (two stages
+# of K and V up to d = 128, one at 256).
+DECODE_CASES = ([(sq, skv, grp, False, 64) for sq in (1, 3, 16)
+                 for skv in (1, 100, 1500) for grp in (1, 4)]
+                + [(s, s, grp, True, 64) for s in (1, 9, 16) for grp in (1, 4)]
+                + [(1, 1500, 1, False, d) for d in (16, 40, 112, 128, 256)]
+                + [(16, 16, 4, True, 16), (4, 700, 2, False, 256),
+                   (2, 9000, 4, False, 64), (1, 9000, 1, False, 128),
+                   (1, 5000, 1, False, 256)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_flash_attention_decode_body_matches_plain(cuda_device, case, views):
+    """The decode body against its split twin (``decode_splits``) and the
+    plain version, on contiguous operands and on whisper's transposed
+    [b, s, h, d] views; a second call checks that the split counters were
+    left at zero."""
+    sq, skv, group, causal, d = case
+    b, hq = 4, 8
+    rng = np.random.default_rng(sum(case[:3]) + d)
+    if views:
+        q, k, v = (_heads_view(rng, b, h, s, d).to(cuda_device)
+                   for h, s in ((hq, sq), (hq // group, skv),
+                                (hq // group, skv)))
+    else:
+        q, k, v = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16)
+                   for a in _qkv(rng, b, hq, hq // group, sq, skv, d))
+    got = _launch_one(q, k, v, "decode", causal=causal)
+    for want in (tflash.twin(q, k, v, causal=causal),
+                 attention_ref(q, k, v, causal=causal)):
+        _bf16_close(got, want, v)
+    again = _launch_one(q, k, v, "decode", causal=causal)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -558,7 +769,8 @@ def test_mla_forward_card_matches_cpu(cuda_device):
         out, cache = tattn.mla_forward(params, x.to(dev), cfg, mode="prefill")
         launched = {k: n - before[k] for k, n in
                     tflash.flash_attention.launches_by_path.items()}
-        assert launched == {"wgmma": 0, "f32": int(dev != "cpu")}
+        assert launched == {"decode": 0, "wgmma": 0,
+                            "f32": int(dev != "cpu")}
         dec = tattn.KVCache(*(torch.nn.functional.pad(
             c, (0, 0, 0, max_len - s)) for c in cache))
         out1, dec = tattn.mla_forward(params, x1.to(dev), cfg, mode="decode",
