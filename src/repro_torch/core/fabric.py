@@ -61,7 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import routing
 from repro_torch.core.events import (EventFrame, make_frame, pack_wire16,
                                      unpack_wire16)
@@ -350,6 +350,7 @@ def _assign_detours(alive: np.ndarray, fan_in: int) -> np.ndarray:
 EXCHANGE_MODES = ("gather", "routed")
 
 
+@obs.span("fabric.compile")
 def compile_fabric(spec: FabricSpec) -> FabricPlan:
     """Compile a topology description into the static hop-graph plan."""
     if not spec.levels:
@@ -785,6 +786,7 @@ def _detour_penalty(lvl: LevelPlan, timing: TimedWire, valid) -> torch.Tensor:
     return extra + queue_wait_i32(_rank(valid), timing.uplink_queue)
 
 
+@obs.span("fabric.merge")
 def _merge_round(parts_l, parts_v, parts_t, rev_tables, plan: FabricPlan,
                  seg_lens: tuple[int, ...], lead, *, use_fused: bool,
                  timing: TimedWire | None, uplink, unroutable, rerouted
@@ -899,7 +901,8 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
     zeros = torch.zeros((b, n), dtype=torch.int32, device=dev)
     uplink = zeros
     if u0 is not None:
-        packed, uplink = make_frame(wire, times, ev, u0)
+        with obs.span("fabric.uplink_pack"):
+            packed, uplink = make_frame(wire, times, ev, u0)
         wire, ev = packed.labels, packed.valid
         if timing is not None:
             times = packed.times
@@ -1002,7 +1005,8 @@ def fabric_route_step(state, frames: EventFrame, plan: FabricPlan, *,
                      + _detour_penalty(nxt, timing, s_vf))
                 s_t = torch.where(s_vf, t, torch.zeros_like(t))
             if nxt.link_capacity is not None:
-                up, drop = make_frame(s_l, s_t, s_vf, nxt.link_capacity)
+                with obs.span("fabric.uplink_pack"):
+                    up, drop = make_frame(s_l, s_t, s_vf, nxt.link_capacity)
                 cur_l, cur_v, cur_len = up.labels, up.valid, nxt.link_capacity
                 cur_t = up.times if timing is not None else None
                 uplink = uplink + drop[:, anc]
@@ -1252,7 +1256,8 @@ def fabric_exchange(frame: EventFrame, mesh, fwd_table: torch.Tensor,
     zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
     uplink = zeros
     if u0 is not None:
-        packed, uplink = make_frame(wire, times, ev, u0)
+        with obs.span("fabric.uplink_pack"):
+            packed, uplink = make_frame(wire, times, ev, u0)
         wire, ev = packed.labels, packed.valid
         if timing is not None:
             times = packed.times
@@ -1341,8 +1346,9 @@ def fabric_exchange(frame: EventFrame, mesh, fwd_table: torch.Tensor,
                 t = parts_t[-1] + _detour_penalty(nxt, timing, s_valid)
                 s_t = torch.where(s_valid, t, torch.zeros_like(t))
             if nxt.link_capacity is not None:
-                up, drop = make_frame(s_labels, s_t, s_valid,
-                                      nxt.link_capacity)
+                with obs.span("fabric.uplink_pack"):
+                    up, drop = make_frame(s_labels, s_t, s_valid,
+                                          nxt.link_capacity)
                 cur_words = pack_wire16(up.labels, up.valid)
                 cur_times = up.times if timing is not None else None
                 uplink = uplink + drop

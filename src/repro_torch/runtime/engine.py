@@ -46,7 +46,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.runtime import elastic
 from repro_torch.snn import network as netlib
 from repro_torch.snn import stream as stlib
@@ -72,8 +72,8 @@ class SessionResult:
     plasticity: Any | None         # final per-session plasticity row
     #                                (numpy traces + evolved weights, batch
     #                                axis squeezed; None when non-plastic)
-    submitted_at: float
-    finished_at: float
+    submitted_at: float            # time.perf_counter() seconds: only the
+    finished_at: float             #   difference of the two means anything
     evicted_to: str | None = None  # checkpoint directory when evicted
 
     @property
@@ -209,19 +209,21 @@ class EmulationEngine:
         the init row, gather each slot's stimulus window at its cursor
         (gated by ``mask``, bool[window, slots]) and run the stream.
         Returns (state, plasticity, payload)."""
-        if reset.any():
-            # Freshly admitted slots start from the init row, written into
-            # their rows only.
-            self._insert(np.flatnonzero(reset), self._row_like,
-                         self._row_plast_like)
-        steps = self._cursor[:, None] + np.arange(self.window)[None, :]
-        win = self._stim[np.arange(self.slots)[:, None], steps]
-        win = np.where(mask.T[:, :, None, None], win, np.float32(0.0))
-        drives = torch.zeros((self.window, self.cfg.n_chips, self.slots,
-                              self.cfg.chip.n_rows), dtype=torch.float32,
-                             device=self.device)
-        drives[:, self._stim_idx] = torch.from_numpy(
-            np.ascontiguousarray(win.transpose(1, 2, 0, 3))).to(self.device)
+        with obs.span("engine.gather"):
+            if reset.any():
+                # Freshly admitted slots start from the init row, written
+                # into their rows only.
+                self._insert(np.flatnonzero(reset), self._row_like,
+                             self._row_plast_like)
+            steps = self._cursor[:, None] + np.arange(self.window)[None, :]
+            win = self._stim[np.arange(self.slots)[:, None], steps]
+            win = np.where(mask.T[:, :, None, None], win, np.float32(0.0))
+            drives = torch.zeros((self.window, self.cfg.n_chips, self.slots,
+                                  self.cfg.chip.n_rows), dtype=torch.float32,
+                                 device=self.device)
+            drives[:, self._stim_idx] = torch.from_numpy(
+                np.ascontiguousarray(win.transpose(1, 2, 0, 3))).to(
+                    self.device)
         out = stlib.run_stream(
             self.params, self._state, drives, self.cfg, fabric=self.plan,
             timed=self.timed, overlap=self.overlap, use_fused=self.use_fused,
@@ -280,7 +282,7 @@ class EmulationEngine:
                              f"max_steps={self.max_steps}")
         sid = self._next_sid
         self._next_sid += 1
-        self._queue.append((sid, stim, restore_from, time.time()))
+        self._queue.append((sid, stim, restore_from, time.perf_counter()))
         self._admit()
         return sid
 
@@ -318,6 +320,7 @@ class EmulationEngine:
 
     # -- advance ------------------------------------------------------------
 
+    @obs.span("engine.step")
     def step(self) -> int:
         """Advance every occupied slot one window; finalize sessions whose
         cursor reached their length and admit queued requests into the
@@ -354,9 +357,12 @@ class EmulationEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @obs.span("engine.account")
     def _account(self, payload, remaining) -> None:
         def host(x):
-            return x.detach().cpu().numpy()
+            a = x.detach().cpu().numpy()
+            obs.count("engine.to_host_bytes", a.nbytes)
+            return a
 
         lat = lat_valid = None
         if self.keep_spikes:
@@ -410,7 +416,9 @@ class EmulationEngine:
             row = self._row_plast_like
         else:
             _, row = self._extract(slot)
-        return type(row)(*(x.detach().cpu().numpy()[:, 0] for x in row))
+        rows = [x.detach().cpu().numpy() for x in row]
+        obs.count("engine.to_host_bytes", sum(a.nbytes for a in rows))
+        return type(row)(*(a[:, 0] for a in rows))
 
     def _result_of(self, slot: int, *, evicted_to=None) -> SessionResult:
         sess = self._sessions[slot]
@@ -425,9 +433,10 @@ class EmulationEngine:
             spike_count=int(sess.spike_count),
             latency=self._session_latency(sess),
             plasticity=self._session_plasticity(slot),
-            submitted_at=sess.submitted_at, finished_at=time.time(),
+            submitted_at=sess.submitted_at, finished_at=time.perf_counter(),
             evicted_to=evicted_to, **sess.drops)
 
+    @obs.span("engine.finalize")
     def _finalize(self, slot: int) -> None:
         result = self._result_of(slot)
         self._results[result.session_id] = result

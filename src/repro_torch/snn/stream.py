@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import fabric as fablib
 from repro_torch.core import latency as latlib
 from repro_torch.core.events import make_frame
@@ -121,15 +121,17 @@ def exchange_spikes(params: netlib.NetworkParams, spikes: torch.Tensor,
     first; the latency planes are zero-width when untimed.
     """
     n, *mid, n_neurons = spikes.shape
-    valid = spikes.reshape(n, -1, n_neurons).transpose(0, 1) > 0.5
-    labels = egress_label_grid(cfg, spikes.device).expand(valid.shape)
-    times = None if timing is None else torch.zeros_like(labels)
-    frames, egress_drop = make_frame(labels, times, valid, cfg.capacity)
+    with obs.span("exchange.egress"):
+        valid = spikes.reshape(n, -1, n_neurons).transpose(0, 1) > 0.5
+        labels = egress_label_grid(cfg, spikes.device).expand(valid.shape)
+        times = None if timing is None else torch.zeros_like(labels)
+        frames, egress_drop = make_frame(labels, times, valid, cfg.capacity)
     ingress, drops = fablib.fabric_route_step(params.router, frames, plan,
                                               use_fused=use_fused,
                                               timing=timing, health=health)
-    drives = chiplib.labels_to_rows(ingress.labels, ingress.valid,
-                                    params.row_of_label, cfg.chip.n_rows)
+    with obs.span("exchange.ingress"):
+        drives = chiplib.labels_to_rows(ingress.labels, ingress.valid,
+                                        params.row_of_label, cfg.chip.n_rows)
     if timing is None:
         lat = ingress.labels[..., :0]
         lat_valid = ingress.valid[..., :0]
@@ -398,50 +400,57 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         slot_mask = torch.as_tensor(slot_mask).to(device=device,
                                                   dtype=torch.bool)
 
-    def route(spikes, t):
-        """Step ``t``'s exchange (its plan and overlay); the overlap
-        epilogue of a zero-step run has no step and takes ``plan``."""
-        health = None if sched is None else health_at(sched, t)
-        return exchange_spikes(params, spikes, cfg, plans[t] if plans else plan,
-                               timing, health, use_fused)
-
     rasters, stats = [], []
+
+    @obs.span("stream.route")
+    def route(spikes, t):
+        """Step ``t``'s exchange (its plan and overlay), written to ring
+        slot ``t % delay``; the overlap epilogue of a zero-step run has no
+        step and takes ``plan``."""
+        health = None if sched is None else health_at(sched, t)
+        routed, *st = exchange_spikes(params, spikes, cfg,
+                                      plans[t] if plans else plan, timing,
+                                      health, use_fused)
+        inflight[t % delay] = routed
+        stats.append(st)
+
     for t in range(n_steps):
         slot = t % delay
-        # Ingress: the slot written `delay` steps ago.
-        drive = ext_drives[t] + inflight[slot]
-        if per_slot:
-            chips, spikes = chiplib.chip_step_slots(params.chips, chips, drive,
-                                                    plast.weights, cfg.chip)
-        else:
-            # A plastic run integrates the evolving weights.
-            chip_params = (params.chips if plast is None
-                           else params.chips._replace(weights=plast.weights))
-            chips, spikes = chiplib.chip_step(chip_params, chips, drive,
-                                              cfg.chip)
-        mask_t = None if slot_mask is None else slot_mask[t]
-        if mask_t is not None:
-            # Before recording, egress and plasticity: an idle slot emits
-            # nothing.
-            spikes = torch.where(mask_t[None, :, None], spikes, 0.0)
-        if per_slot:
-            plast = plaslib.stdp_slot_step(plast, drive, spikes, plasticity,
-                                           mask=mask_t)
-        elif plast is not None:
-            plast = plaslib.stdp_stream_step(plast, drive, spikes, plasticity)
+        with obs.span("stream.chip_step"):
+            # Ingress: the slot written `delay` steps ago.
+            drive = ext_drives[t] + inflight[slot]
+            if per_slot:
+                chips, spikes = chiplib.chip_step_slots(
+                    params.chips, chips, drive, plast.weights, cfg.chip)
+            else:
+                # A plastic run integrates the evolving weights.
+                chip_params = (params.chips if plast is None else
+                               params.chips._replace(weights=plast.weights))
+                chips, spikes = chiplib.chip_step(chip_params, chips, drive,
+                                                  cfg.chip)
+            mask_t = None if slot_mask is None else slot_mask[t]
+            if mask_t is not None:
+                # Before recording, egress and plasticity: an idle slot
+                # emits nothing.
+                spikes = torch.where(mask_t[None, :, None], spikes, 0.0)
+        if plast is not None:
+            with obs.span("stream.plasticity"):
+                if per_slot:
+                    plast = plaslib.stdp_slot_step(plast, drive, spikes,
+                                                   plasticity, mask=mask_t)
+                else:
+                    plast = plaslib.stdp_stream_step(plast, drive, spikes,
+                                                     plasticity)
         if layout is not None:
-            inflight[slot] = route_dense(spikes, layout)
+            with obs.span("stream.route"):
+                inflight[slot] = route_dense(spikes, layout)
         elif not overlap:
             # Egress: the consumed slot is the one due `delay` steps out.
-            routed, *st = route(spikes, t)
-            inflight[slot] = routed
-            stats.append(st)
+            route(spikes, t)
         elif t:
             # The exchange of step t - 1, one iteration late: its slot is
             # read at step t - 1 + delay, never this iteration (delay >= 2).
-            routed, *st = route(rasters[-1], t - 1)
-            inflight[(t - 1) % delay] = routed
-            stats.append(st)
+            route(rasters[-1], t - 1)
         rasters.append(spikes)
     spikes = (torch.stack(rasters) if rasters else
               torch.zeros((0, *rows, cfg.chip.n_neurons),
@@ -452,9 +461,7 @@ def run_stream(params: netlib.NetworkParams, state: netlib.NetworkState,
         # spikes were masked when they were produced.
         last = (rasters[-1] if rasters else
                 spikes.new_zeros((*rows, cfg.chip.n_neurons)))
-        routed, *st = route(last, n_steps - 1)
-        inflight[(n_steps - 1) % delay] = routed
-        stats.append(st)
+        route(last, n_steps - 1)
     if stats:
         dropped, uplink, lat, lat_valid, unroutable, rerouted = (
             torch.stack(x) for x in zip(*stats))
