@@ -22,7 +22,10 @@ Phases, each reported on its own lines:
    replay), the plain version's time, a library call's time where one
    computes the same function, and the bound.  The streaming exchange is
    also timed, in turns, against the exchange kernel run with batch = T
-   on the same frames.  Every SNN kernel case names the body it ran and
+   on the same frames.  The per-slot STDP kernel, which replaces no TPU
+   kernel, at the engine's [96, 64, 256, 512], unmasked and masked: traces
+   and weights bit for bit except at float32 rounding midpoints of the
+   plain version's float64 sums, its inputs unchanged, time as called.  Every SNN kernel case names the body it ran and
    prints its launch floor: the graph-replay time of an empty kernel with
    the same grid, block and shared memory (``*_floor_launch`` in the
    kernels' sources); cases reach every body of the exchange, merge_pack,
@@ -106,7 +109,9 @@ Phases, each reported on its own lines:
    against the plain loop (FULL_BACKPLANE, 0.25 us steps), each per-slot
    row against a batch-1 run; peak device memory, a profiler pass over 8
    plastic steps, and phase 4's card-against-CPU check on 16 plastic
-   steps with the flips judged on the evolving weights.
+   steps with the flips judged on the evolving weights.  Each per-slot
+   step launches the STDP kernel once; phases 12-13's launches of it are
+   its count in the kernels line.
 13. The durable runtime and the multi-tenant engine at full chip width:
    the supervised shared-plastic stream against one long run, a kill and
    resume, a watchdog recovery onto a degraded plan, the engine's sessions
@@ -245,7 +250,8 @@ Phases, each reported on its own lines:
 
 Each phase prints its wall time.  Any failure exits non-zero.  The line
 before the card's name lists each kernel's launches on the main paths,
-time, plain time, library time and bound; the LM kernels' entries add
+time, plain time, library time and bound (``replaces`` is null for the
+STDP kernel, which no TPU kernel precedes); the LM kernels' entries add
 their launches by body (flash attention's decode body must have served
 whisper's decode steps, its wgmma body the prefills).  The last line is
 the result for the harness.
@@ -299,6 +305,8 @@ from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
     linear_scan_channel_decay_ref, linear_scan_chunked,
     linear_scan_scalar_decay_ref)
 from repro_torch.kernels.spike_router import ops, ref  # noqa: E402
+from repro_torch.kernels.stdp_slot import ops as stdp_ops  # noqa: E402
+from repro_torch.kernels.stdp_slot import ref as stdp_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe as moelib  # noqa: E402
@@ -346,6 +354,10 @@ KERNEL_SOURCES = {
         "src/repro/kernels/flash_attention/flash_attention.py:129"),
     "linear_scan": ("src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
                     "src/repro/kernels/linear_scan/linear_scan.py:106"),
+    # Replaces no TPU kernel: the JAX package's per-slot STDP step is plain
+    # jnp, which XLA fuses.
+    "stdp_slot": ("src/repro_torch/kernels/stdp_slot/csrc/stdp_slot.cu",
+                  None),
 }
 # linear_scan's bodies and their sources (the kernels line notes both).
 SCAN_SOURCES = {
@@ -1079,6 +1091,106 @@ def phase2_interconnect(results: dict) -> None:
               f"{r['eager_ms'] * 1e3:.2f} us as called, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f}"
               f" us ({r['bound_by']})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, the per-slot STDP step
+# ---------------------------------------------------------------------------
+
+# The engine's per-slot weights: ext4case.engine's 96 chips x 64 slots, 256
+# rows x 512 neurons (3.2 GB of float32).
+STDP_SHAPE = (96, 64, 256, 512)
+
+
+def stdp_inputs(gen, shape):
+    """Traces in [0, 3), drives in multiples of 1/16 up to 4 on 30% of the
+    rows, spikes on 10% of the neurons, weights in [0, 63) with a fifth on
+    0 and a seventh on 63; the mask keeps 4 slots of every 5."""
+    c, b, r, n = shape
+
+    def uniform(size, hi):
+        return torch.rand(size, generator=gen, device=DEV) * hi
+
+    pre = ((uniform((c, b, r), 1.0) < 0.3) * torch.randint(
+        1, 64, (c, b, r), generator=gen, device=DEV) / 16).float()
+    post = (uniform((c, b, n), 1.0) < 0.1).float()
+    w = uniform((c, b, r, n), 63.0)
+    flat = w.view(-1)
+    flat[::5] = 0.0
+    flat[3::7] = 63.0
+    state = plas.SlotPlasticityState(uniform((c, b, r), 3.0),
+                                     uniform((c, b, n), 3.0), w)
+    return state, pre, post, torch.arange(b, device=DEV) % 5 != 4
+
+
+def stdp_check(what: str, state, pre, post, mask) -> tuple[float, int]:
+    """The kernel against its plain version on the same card inputs: traces
+    and weights bit for bit, except where a float64 sum of the plain
+    version lands on a float32 rounding midpoint (``stdp_ref.midpoints``,
+    one chip at a time where values differ).  Returns (max abs difference,
+    values that differ)."""
+    with torch.no_grad():
+        got = stdp_ops.stdp_slot(state, pre, post, STDP, mask)
+        want = stdp_ref.stdp_slot_ref(state, pre, post, STDP, mask)
+    err, n_diff = 0.0, 0
+    for field in plas.SlotPlasticityState._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        differ = g.view(torch.int32) != w.view(torch.int32)
+        n_diff += int(differ.sum())
+        err = max(err, float((g - w).abs().max()))
+        for c in differ.flatten(1).any(1).nonzero().flatten().tolist():
+            one = slice(c, c + 1)
+            mids = stdp_ref.midpoints(
+                plas.SlotPlasticityState(*(x[one] for x in state)),
+                pre[one], post[one], STDP, mask)[field]
+            bad = (differ[one] & ~mids).nonzero()
+            if len(bad):
+                at = (c, *bad[0].tolist()[1:])
+                raise AssertionError(
+                    f"stdp_slot {what}: {field}{list(at)} kernel "
+                    f"{g[at].item()!r}, plain {w[at].item()!r}, not on a "
+                    f"float32 rounding midpoint")
+    return err, n_diff
+
+
+def phase2_stdp(results: dict) -> None:
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    state, pre, post, mask = stdp_inputs(gen, STDP_SHAPE)
+    inputs = [x.clone() for x in (*state, pre, post)]
+    err, n_diff = 0.0, 0
+    for what, m in (("unmasked", None), ("masked", mask)):
+        e, n = stdp_check(what, state, pre, post, m)
+        err, n_diff = max(err, e), n_diff + n
+    for x, y in zip(inputs, (*state, pre, post), strict=True):
+        parity.assert_equal("stdp_slot: its inputs after the launches", x, y)
+    del inputs
+    with torch.no_grad():
+        ms = {what: eager_ms(lambda m=m: stdp_ops.stdp_slot(
+            state, pre, post, STDP, m)) for what, m in (("unmasked", None),
+                                                        ("masked", mask))}
+        plain = eager_ms(lambda: stdp_ref.stdp_slot_ref(state, pre, post,
+                                                        STDP, mask),
+                         iters=3, warmup=1)
+    c, b, r, n = STDP_SHAPE
+    # Bytes: the weights read once and written once, the traces read and
+    # written, the drives and spikes read; 7 float32 operations a synapse.
+    b_ms, b_by = bound(8 * c * b * r * n + 4 * c * b * (3 * r + 3 * n) + b,
+                       7 * c * b * r * n)
+    # The engine passes its slot mask at every step: the masked time is
+    # the main path's.
+    results["stdp_slot"] = dict(
+        max_abs_err=err, ms=ms["masked"], plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by)
+    print(f"phase 2: stdp_slot {list(STDP_SHAPE)}: the kernel against its "
+          f"plain version, unmasked and with {int(mask.sum())} of {b} slots "
+          f"kept: {n_diff} values differ (each on a float32 rounding "
+          f"midpoint), max abs err {err:.3g}; inputs unchanged; kernel "
+          f"{ms['unmasked']:.4f} ms unmasked, {ms['masked']:.4f} ms masked "
+          f"(as called, CUDA events), plain {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    del state, pre, post, mask
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2607,10 +2719,16 @@ def phase12(launches: dict, gpu: str) -> None:
 
     slot_run(drives[:4], mask=mask[:4])                     # warm-up
     torch.cuda.reset_peak_memory_stats(DEV)
+    before = stdp_ops.stdp_slot.launches
     outs, rates = in_turns({"plain": lambda: slot_run(plastic=False),
                             "per-slot": slot_run}, launches,
                            {"plain": want, "per-slot": want}, rounds=3)
     peak = torch.cuda.max_memory_allocated(DEV)
+    stdp_launches = stdp_ops.stdp_slot.launches - before
+    if stdp_launches != 6 * STEPS:
+        raise AssertionError(f"per-slot: {stdp_launches} stdp_slot launches "
+                             f"in 6 runs of {STEPS} steps, expected one a "
+                             f"step")
     out = outs["per-slot"]
     start, stop = IDLE_STEPS
     idle = (slice(start, stop), slice(None), slice(BATCH // 2, None))
@@ -2651,7 +2769,8 @@ def phase12(launches: dict, gpu: str) -> None:
           f"traces and weights did not move; three chained windows equal "
           f"the {STEPS}-step run bit for bit; each of the {BATCH} rows "
           f"equals a batch-1 run over {CHECK_STEPS} steps bit for bit; "
-          f"launches by body {want} in every run; peak device memory "
+          f"launches by body {want} in every run and one stdp_slot launch "
+          f"a per-slot step; peak device memory "
           f"{peak / 2 ** 30:.2f} GiB (per-slot weights "
           f"{out.plasticity.weights.numel() * 4 / 1e6:.0f} MB); steps/s in "
           f"turns (plain, per-slot, per-slot, plain) x 3: plain "
@@ -5103,7 +5222,7 @@ def main() -> None:
               f"s", flush=True)
 
     timed_phase("2", lambda: (phase2(results), phase2_interconnect(results),
-                              phase2_lm(results)))
+                              phase2_stdp(results), phase2_lm(results)))
     timed_phase("3", lambda: healthy.update(phase3(launches, gpu)))
     timed_phase("4", phase4)
     timed_phase("5", lambda: phase5(launches, gpu))
@@ -5113,8 +5232,11 @@ def main() -> None:
     timed_phase("9", lambda: phase9(launches, gpu, healthy))
     timed_phase("10", lambda: phase10(launches, gpu, healthy))
     timed_phase("11", lambda: phase11(gpu))
+    # stdp_slot's main-path launches: those of phases 12-13's per-slot runs.
+    stdp_ops.stdp_slot.launches = 0
     timed_phase("12", lambda: phase12(launches, gpu))
     timed_phase("13", lambda: phase13(launches, gpu))
+    launches["stdp_slot"] += stdp_ops.stdp_slot.launches
     timed_phase("14", lambda: phase14(launches, gpu))
     timed_phase("15", lambda: phase15(launches, gpu))
     timed_phase("16", lambda: phase16(launches, gpu))

@@ -12,6 +12,9 @@ Dispatch rule: a wrapper runs the plain version when its tensors lie on the
 CPU and launches the kernel when they lie on a CUDA device.  There is no
 switch and no fallback: on a CUDA tensor the kernel runs or the call raises.
 The LM kernels have no backward (``refuse_autograd``), on either device.
+``stdp_slot`` has none either and refuses a gradient on the card; on the
+CPU its plain version differentiates, as the JAX package's per-slot update
+does (``stdp_slot.ops.stdp_slot``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,13 @@ def on_card(*tensors: torch.Tensor | None) -> bool:
     raise ValueError(f"no kernel and no plain version for device {device}")
 
 
-def refuse_autograd(name: str, *tensors: torch.Tensor | None) -> None:
+_LM_ADVICE = ("the JAX package's kernel has none (ROADMAP.md queue 3); "
+              "train with attention_impl='xla' or call it under "
+              "torch.no_grad()")
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor | None,
+                    advice: str = _LM_ADVICE) -> None:
     """Raise if a call would need a gradient through kernel ``name``: grad
     mode is on and an operand requires grad.  The JAX package's Pallas
     kernels have no backward (its ``value_and_grad`` through them fails),
@@ -55,13 +64,11 @@ def refuse_autograd(name: str, *tensors: torch.Tensor | None) -> None:
     the gradient would be cut off without an error.  The plain version
     could differentiate on the CPU, but then one call would give another
     result on each device: both refuse.  Train under
-    ``attention_impl="xla"``, as the JAX package does."""
+    ``attention_impl="xla"``, as the JAX package does.  ``advice`` ends
+    the message; it says what to do instead."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        raise TypeError(
-            f"{name} has no backward: the JAX package's kernel has none "
-            f"(ROADMAP.md queue 3); train with "
-            f"attention_impl='xla' or call it under torch.no_grad()")
+        raise TypeError(f"{name} has no backward: {advice}")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -20,7 +20,9 @@ rounding midpoint (about one inexact sum in 2^29).  Every other operation
 is one float32 operation in the reference's order.  No BLAS call sums
 anything, so the update is the same elementwise computation on the CPU
 and on the card, bit for bit, and the weights the chips quantize do not
-drift between devices.
+drift between devices.  On the card the per-slot step runs the kernel
+``kernels/stdp_slot``, whose ``__fmaf_rn`` rounds each fused multiply-add
+once as XLA does: it equals this emulation except at those midpoints.
 """
 
 from __future__ import annotations
@@ -198,16 +200,12 @@ def stdp_slot_step(state: SlotPlasticityState, pre: torch.Tensor,
     """One plasticity walk with per-slot weights: each slot's outer
     products rewrite only that slot's array.  ``mask`` (bool[batch])
     freezes the masked-out slots: their traces and weights pass through
-    unchanged."""
-    trace_pre, trace_post = _traces(state.trace_pre, state.trace_post, pre,
-                                    post, cfg)
-    weights = _new_weights(state.weights,
-                           trace_pre[..., :, None] * post[..., None, :],
-                           pre[..., :, None] * trace_post[..., None, :], cfg)
-    if mask is not None:
-        keep = mask.to(device=pre.device, dtype=torch.bool)[None, :, None]
-        trace_pre = torch.where(keep, trace_pre, state.trace_pre)
-        trace_post = torch.where(keep, trace_post, state.trace_post)
-        weights = torch.where(keep[..., None], weights, state.weights)
-    return SlotPlasticityState(trace_pre=trace_pre, trace_post=trace_post,
-                               weights=weights)
+    unchanged.
+
+    The hand-written kernel ``kernels/stdp_slot`` computes it on CUDA
+    tensors in one launch and refuses a gradient there; CPU tensors take
+    its plain version, which differentiates (``kernels.stdp_slot.ops.
+    stdp_slot`` states the rule)."""
+    # Imported here: the kernel's plain version imports this module.
+    from repro_torch.kernels.stdp_slot.ops import stdp_slot
+    return stdp_slot(state, pre, post, cfg, mask)

@@ -38,6 +38,11 @@ from repro.snn import stream as jstream
 from repro_torch import convert, parity
 from repro_torch.analysis import scenarios as tsc
 from repro_torch.core import fabric as tfab
+from repro_torch.kernels.stdp_slot import ops as slot_ops
+from repro_torch.kernels.stdp_slot import ref as slot_ref
+from repro_torch.kernels.stdp_slot.ref import (float32_midpoint,
+                                              midpoints, stdp_slot_ref)
+from repro_torch.runtime.engine import EmulationEngine
 from repro_torch.snn import chip as tchip
 from repro_torch.snn import network as tnet
 from repro_torch.snn import neuron as tnrn
@@ -167,6 +172,109 @@ def test_batch_one_reductions_are_exact(seed):
         T(post), cfg)
     assert_state_equal(shared._replace(weights=shared.weights[:, None]),
                        slot)
+
+
+def _slot_state(rng, c=3, b=4):
+    tp, tq, pre, post = step_inputs(rng, c, b)
+    w = rng.uniform(0.0, 63.0, (c, b, 32, 64)).astype(np.float32)
+    mask = np.arange(b) % 2 == 0
+    return (tplas.SlotPlasticityState(T(tp), T(tq), T(w)), T(pre), T(post),
+            T(mask))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_stdp_slot_cpu_takes_the_plain_version(masked):
+    """CPU tensors run the kernel's plain version and launch nothing."""
+    state, pre, post, mask = _slot_state(np.random.default_rng(11))
+    mask = mask if masked else None
+    before = slot_ops.stdp_slot.launches
+    got = tplas.stdp_slot_step(state, pre, post, tplas.STDPConfig(),
+                               mask=mask)
+    want = stdp_slot_ref(state, pre, post, tplas.STDPConfig(), mask)
+    assert slot_ops.stdp_slot.launches == before
+    for field in STATE_FIELDS:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+def _needs_grad(state, pre, post, operand):
+    """The operands with ``operand`` a leaf that requires grad."""
+    args = dict(state=state, pre=pre, post=post)
+    if operand in ("pre", "post"):
+        args[operand] = args[operand].clone().requires_grad_(True)
+    else:
+        args["state"] = state._replace(
+            **{operand: getattr(state, operand).clone().requires_grad_(True)})
+    return args
+
+
+GRAD_OPERANDS = ["weights", "trace_pre", "pre", "post"]
+
+
+@pytest.mark.parametrize("operand", GRAD_OPERANDS)
+def test_stdp_slot_gradient_on_the_cpu_takes_the_plain_version(operand):
+    """On CPU tensors a call that needs a gradient runs the plain version,
+    which keeps its ``grad_fn`` and equals the call without a gradient."""
+    state, pre, post, mask = _slot_state(np.random.default_rng(14))
+    args = _needs_grad(state, pre, post, operand)
+    before = slot_ops.stdp_slot.launches
+    got = tplas.stdp_slot_step(args["state"], args["pre"], args["post"],
+                               tplas.STDPConfig(), mask=mask)
+    assert slot_ops.stdp_slot.launches == before
+    assert got.weights.grad_fn is not None
+    want = stdp_slot_ref(state, pre, post, tplas.STDPConfig(), mask)
+    for field in STATE_FIELDS:
+        assert torch.equal(getattr(got, field).detach(),
+                           getattr(want, field)), field
+
+
+@pytest.mark.parametrize("operand", GRAD_OPERANDS)
+def test_stdp_slot_gradient_on_the_card_raises(monkeypatch, operand):
+    """Where the operands stand for card tensors, a call that needs a
+    gradient raises before any launch (the kernel has no backward); the
+    same call under ``no_grad`` reaches the launch, counted once."""
+    state, pre, post, mask = _slot_state(np.random.default_rng(12))
+    launched = []
+
+    def fake_launch(*args):
+        launched.append(args)
+        with torch.no_grad():
+            return stdp_slot_ref(*args)
+
+    monkeypatch.setattr(slot_ops, "on_card", lambda *t: True)
+    monkeypatch.setattr(slot_ops, "_launch", fake_launch)
+    args = _needs_grad(state, pre, post, operand)
+    before = slot_ops.stdp_slot.launches
+    with pytest.raises(TypeError, match="stdp_slot has no backward"):
+        tplas.stdp_slot_step(args["state"], args["pre"], args["post"],
+                             tplas.STDPConfig(), mask=mask)
+    assert not launched and slot_ops.stdp_slot.launches == before
+    with torch.no_grad():
+        tplas.stdp_slot_step(args["state"], args["pre"], args["post"],
+                             tplas.STDPConfig(), mask=mask)
+    assert len(launched) == 1 and slot_ops.stdp_slot.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["trace_pre_shape", "post_shape",
+                                  "weights_rank", "weights_float64",
+                                  "pre_float16", "mask_length"])
+def test_stdp_slot_rejects_bad_operands(case):
+    state, pre, post, mask = _slot_state(np.random.default_rng(13))
+    error = ValueError
+    if case == "trace_pre_shape":
+        state = state._replace(trace_pre=state.trace_pre[:, :, :-1])
+    elif case == "post_shape":
+        post = post[:, :3]
+    elif case == "weights_rank":
+        state = state._replace(weights=state.weights[:, 0])
+    elif case == "weights_float64":
+        state, error = state._replace(weights=state.weights.double()), \
+            TypeError
+    elif case == "pre_float16":
+        pre, error = pre.half(), TypeError
+    else:
+        mask = mask[:-1]
+    with pytest.raises(error):
+        tplas.stdp_slot_step(state, pre, post, tplas.STDPConfig(), mask=mask)
 
 
 def test_init_states_match():
@@ -688,3 +796,135 @@ def test_plastic_run_card_matches_cpu(cuda_device, per_slot):
             weights=before.plasticity.weights if t else ps.weights)
 
     print(parity.compare_streams(cpu, runs[str(cuda_device)][-1], margin_at))
+
+
+def test_midpoint_finder_catches_the_double_rounding():
+    """The card test's excuse, on a constructed case: ``a·b + c`` lies
+    2^-70 under the float32 midpoint 1 + 3·2^-24, so one fused rounding
+    gives 1 + 2^-23; the plain version's float64 sum lands on the
+    midpoint and rounds to even, 1 + 2^-22.  The finder flags it, and
+    neither an exact sum nor one that is itself a midpoint."""
+    a = 1.0 + 2.0 ** -23
+    b = torch.tensor([(1.0 - 2.0 ** -23) * 2.0 ** -24, 2.0 ** -24, 0.5])
+    c = torch.full((3,), 1.0 + 2.0 ** -23)
+    plain = tplas._fma(a, b, c)
+    assert plain[0].item() == 1.0 + 2.0 ** -22
+    assert float32_midpoint(a, b, c).tolist() == [True, False, False]
+
+
+def test_midpoints_excuse_nothing_in_a_frozen_slot(monkeypatch):
+    """``midpoints`` joins the midpoints behind each value (here every sum
+    is taken for one) and clears the slots the mask freezes: a frozen
+    slot's traces and weights are copies, never a rounding."""
+    state, pre, post, mask = _slot_state(np.random.default_rng(15))
+    monkeypatch.setattr(slot_ref, "float32_midpoint",
+                        lambda a, b, c: torch.ones(torch.broadcast_shapes(
+                            b.shape, c.shape), dtype=torch.bool))
+    got = midpoints(state, pre, post, tplas.STDPConfig(), mask)
+    for field in STATE_FIELDS:
+        excused = got[field]
+        assert excused.shape == getattr(state, field).shape, field
+        assert bool(excused[:, mask].all()), field
+        assert not bool(excused[:, ~mask].any()), field
+
+
+def _card_slot_inputs(device, c, b, r, n, *, masked, on_bounds, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(shape, hi):
+        return torch.rand(shape, generator=g, device=device) * hi
+
+    # Drives in multiples of 1/16 (as the stream's), 8x larger where the
+    # updates are to clip at both bounds.
+    top = 512 if on_bounds else 64
+    pre = ((uniform((c, b, r), 1.0) < 0.5) * torch.randint(
+        1, top, (c, b, r), generator=g, device=device) / 16).float()
+    post = (uniform((c, b, n), 1.0) < 0.3).float()
+    w = uniform((c, b, r, n), 63.0)
+    if on_bounds:
+        flat = w.view(-1)
+        flat[::5] = 0.0
+        flat[3::7] = 63.0
+    state = tplas.SlotPlasticityState(uniform((c, b, r), 3.0),
+                                      uniform((c, b, n), 3.0), w)
+    mask = None
+    if masked:
+        mask = torch.arange(b, device=device) % 3 != 1
+    return state, pre, post, mask
+
+
+SLOT_CASES = {  # (chips, batch, rows, neurons, masked, on_bounds)
+    "engine": (4, 8, 256, 512, False, False),
+    "engine_masked": (4, 8, 256, 512, True, False),
+    "batch1": (8, 1, 256, 512, False, False),
+    "bounds_masked": (2, 4, 256, 512, True, True),
+    "ragged_masked": (2, 3, 30, 62, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLOT_CASES)
+def test_stdp_slot_kernel_equals_plain_bit_for_bit(cuda_device, case):
+    """The kernel against its plain version on the same card inputs: the
+    engine's layout at a reduced size and at batch 1, masked and not,
+    weights on 0 and 63 with updates that clip at both bounds, and a
+    ragged shape (rows and neurons not multiples of the kernel's tiles).
+    Traces and weights equal bit for bit, except where a float64 sum of
+    the plain version lies on a float32 rounding midpoint; each such
+    difference is reported."""
+    c, b, r, n, masked, on_bounds = SLOT_CASES[case]
+    cfg = tplas.STDPConfig()
+    state, pre, post, mask = _card_slot_inputs(
+        cuda_device, c, b, r, n, masked=masked, on_bounds=on_bounds,
+        seed=sum(SLOT_CASES[case][:4]))
+    inputs = [x.clone() for x in (*state, pre, post)]
+    before = slot_ops.stdp_slot.launches
+    with torch.no_grad():
+        got = tplas.stdp_slot_step(state, pre, post, cfg, mask=mask)
+        want = stdp_slot_ref(state, pre, post, cfg, mask)
+    torch.cuda.synchronize()
+    assert slot_ops.stdp_slot.launches == before + 1
+    for x, y in zip(inputs, (*state, pre, post), strict=True):
+        assert torch.equal(x, y), "the kernel wrote an input"
+    # Where the plain version's float64 sums lie on a float32 midpoint.
+    allowed = midpoints(state, pre, post, cfg, mask)
+    for field, may_differ in allowed.items():
+        g, w = getattr(got, field), getattr(want, field)
+        differ = g.view(torch.int32) != w.view(torch.int32)
+        for at in differ.nonzero()[:16].tolist():
+            print(f"{case} {field}{at}: kernel {g[tuple(at)].item()!r} "
+                  f"plain {w[tuple(at)].item()!r} midpoint "
+                  f"{bool(may_differ[tuple(at)])}")
+        print(f"{case} {field}: {int(differ.sum())} of {differ.numel()} "
+              f"differ, {int((differ & may_differ).sum())} on a midpoint")
+        assert not bool((differ & ~may_differ).any()), field
+    if on_bounds:
+        w0, w1 = state.weights, got.weights
+        assert bool(((w0 > 0) & (w1 == 0)).any())
+        assert bool(((w0 < 63) & (w1 == 63)).any())
+    if masked:
+        frozen = ~mask.cpu()
+        for field in STATE_FIELDS:
+            assert torch.equal(getattr(got, field)[:, frozen],
+                               getattr(state, field)[:, frozen]), field
+
+
+@pytest.mark.cuda
+def test_engine_window_launches_the_kernel_once_a_step(cuda_device):
+    """One engine window with per-slot plasticity on the card launches the
+    slot kernel once for each of its steps."""
+    cfg, params, plan = tsc.engine_network(
+        "EXT_4CASE_96CHIP", chip=tchip.ChipConfig(**SMALL_CHIP),
+        device=cuda_device)
+    window = 8
+    eng = EmulationEngine(params, cfg, slots=4, max_steps=2 * window,
+                          plan=plan, window=window, timed=True,
+                          plasticity=tplas.STDPConfig(), device=cuda_device)
+    rng = np.random.default_rng(5)
+    for length in (5, 8, 12, 16):
+        eng.submit((rng.random((length, cfg.chip.n_rows)) < 0.3)
+                   .astype(np.float32))
+    before = slot_ops.stdp_slot.launches
+    eng.step()
+    torch.cuda.synchronize()
+    assert slot_ops.stdp_slot.launches == before + window
